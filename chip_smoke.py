@@ -12,12 +12,18 @@ Phases, each fatal on failure:
    beside the plain version on the same card tensors and held byte-exact
    against it there too: K1 and K4 on a whole flush of each engine stream,
    bucket by bucket and in one launch, in turns, K4 also on one 64-block
-   leaf alone (its chain floor);
+   leaf alone (its chain floor); K3 on a full slice's 16 natural-order group
+   roots, on 1024 bit-reversed digests and on the 12345-digest ragged tail
+   that stream 1 leaves, block by block and in one launch, in turns, and the
+   ragged tail's whole device part as PR 4 dispatched it (a gather, the K2
+   levels and one K3 launch a block) against one K3 launch; a full grouped
+   slice's reduction must run no gather;
 4. the streaming engine ``CudaSha256D`` at the JAX engine's default size
    (2^20-leaf slices, 2^16-leaf batches) on ``rndm 1712489279 (2^21+12345)
    127`` and on a stream with 1-8 KB leaves mixed in; each root must equal
    the native host root, every kernel must have launched, K1 and K4 at most
-   once a packed flush, and no plain path may have run;
+   once a packed flush, K3 once a full slice and once for a ragged tail on
+   the card, and no plain path may have run;
 5. the CLI, ``python -m vk_merkle_roots_tpu_torch.cli``, on the canonical
    ``rndm 1712489279 1024 127`` stream (root 050194bb...) and on
    ``rndm 1712489279 (2^22+3) 127`` with the default auto slice;
@@ -43,16 +49,18 @@ Phases, each fatal on failure:
 
 The line before the last is one JSON object with each kernel's launches on
 the main path, its largest difference from the plain version, both times,
-its bound (ALU-pipe issue from its SASS, or bytes) and no library time (no
-PyTorch op computes SHA-256); the last line is ``{"ok": true, "device":
-{...}}``.  Exits non-zero, printing no result, without a CUDA device or
-outside the repository.
+its bound (ALU-pipe issue from its SASS, or bytes; for K3 also the chain of
+its levels, ``chain_bound_ms``) and no library time (no PyTorch op computes
+SHA-256); the last line is ``{"ok": true, "device": {...}}``.  Exits
+non-zero, printing no result, without a CUDA device or outside the
+repository.
 The port imports neither JAX nor the JAX package, and neither does this
 script.
 """
 
 from __future__ import annotations
 
+import ctypes
 import io
 import json
 import os
@@ -63,6 +71,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1712489279
+RAGGED = 12345  # the ragged tail of smoke stream 1, (2^21 + 12345) leaves in 2^20-leaf slices
+SPINS = (5_000_000, 20_000_000, 80_000_000, 320_000_000)  # clocks of a timing window's spin: ~2.5 to ~160 ms
 
 # Run with VKMR_KERNEL_DEBUG=1: builds the debug library, launches K1 once
 # on 8 CTAs of 128 leaves and prints digest word 0 of leaf 0.
@@ -265,7 +275,7 @@ def main() -> int:
     from vk_merkle_roots_tpu_torch.ops import perf_probe as pp
     from vk_merkle_roots_tpu_torch.ops import tree_reduce as tr
     from vk_merkle_roots_tpu_torch.packing import pack_spans, split_lines
-    from vk_merkle_roots_tpu_torch.tools import perf_model
+    from vk_merkle_roots_tpu_torch.tools import perf_model, tail_variants
     from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices
     from vk_merkle_roots_tpu_torch.utils.hexutil import words_to_digest
 
@@ -305,24 +315,50 @@ def main() -> int:
         check(a.shape == b.shape, f"shape {a.shape} != {b.shape}")
         return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max()) if a.size else 0
 
-    def cuda_ms(fn, reps: int, warm: bool = True):
+    def cuda_ms(fn, reps: int, warm: bool = True, plain: bool = False):
         """Mean ms per call over ``reps`` calls, and the last call's result.
-        Unless ``warm`` is False, calls run back to back for 50 ms first."""
+        Unless ``warm`` is False, calls run back to back for 50 ms first.  A
+        plain version's host enqueues its thousands of small launches slower
+        than the card runs them (``plain``): its window holds the host's time
+        too, and is taken once."""
         t_warm = time.perf_counter()
         while warm and time.perf_counter() - t_warm < 0.05:
             fn()
             torch.cuda.synchronize()
         torch.cuda.synchronize()
+        return spun_window(fn, reps, (5_000_000,) if plain else SPINS, plain)
+
+    def spun_window(fn, reps: int, spins=SPINS, plain: bool = False):
+        """(ms per call, last result) of ``reps`` calls in one CUDA-event
+        window that opens after a spin on the card.  The window counts only
+        if every launch was queued while the card still spun (the start
+        event not yet reached), so a pause of the host cannot leave gaps in
+        it; else it runs again after a spin four times as long."""
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        # The card spins ~2.5 ms first, so every launch is queued before the
-        # window opens and a host pause cannot leave gaps in it.
-        torch.cuda._sleep(5_000_000)
-        start.record()
+        for spin in spins:
+            torch.cuda._sleep(spin)
+            start.record()
+            for _ in range(reps):
+                result = fn()
+            end.record()
+            queued_in_time = not start.query()
+            end.synchronize()
+            if queued_in_time or plain:
+                return start.elapsed_time(end) / reps, result
+        raise SmokeFailure("the host could not queue a timing window's launches within a ~160 ms spin")
+
+    def timed_with_host(fn, reps: int):
+        """(ms per call on the card, ms per call of host enqueue) over
+        ``reps`` calls after a warm-up call, the card's time from
+        :func:`spun_window`."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(reps):
-            result = fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps, result
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return spun_window(fn, reps)[0], host
 
     def spans_of(leaves):
         lengths = np.array([len(x) for x in leaves], np.int64)
@@ -388,7 +424,9 @@ def main() -> int:
     err["fold_level"] = max(err["fold_level"], abs_err(sub, u32(tr.fold_level_plain(x_cpu[:, 4096:8192]))))
     print(f"fold_level: 2^14 digests, groups 1/4/64 and a column range, max |kernel - plain| = {err['fold_level']}")
 
-    # K3: n = 1, 2, 4, ..., 1024 bit-reversed digests to the root.
+    # K3: n = 1, 2, 4, ..., 1024 bit-reversed digests to the root, one block
+    # a launch; then every perfect block of the 12345-digest ragged tail in
+    # one launch (two of them folded to 1024 digests by K2 first).
     for k in range(11):
         n = 1 << k
         nat = xs[:, :n]
@@ -397,7 +435,23 @@ def main() -> int:
         err["tail_reduce"] = max(err["tail_reduce"], abs_err(root, u32(tr.tail_reduce_plain(fold_in))))
         want = oracle.merkle_root_of_digests([words_to_digest(nat[:, i]) for i in range(n)])
         check(words_to_digest(root) == want, f"tail_reduce n={n}: root differs from hashlib")
-    print(f"tail_reduce: n = 1..1024, max |kernel - plain| = {err['tail_reduce']}")
+    ragged_nat = np.random.default_rng(SEED + RAGGED).integers(0, 2**32, size=(8, RAGGED), dtype=np.uint32)
+    ragged_dev = torch.from_numpy(ragged_nat.view(np.int32)).to(dev)
+    ragged, ragged_heights = tr.ragged_entries(ragged_dev, RAGGED)
+    _build.reset_counts()
+    got = u32(tr.tail_reduce_blocks(ragged))
+    check(dict(_build.launches) == {"tail_reduce": 1}, f"the ragged tail's blocks took {dict(_build.launches)}")
+    cpu_blocks = [e._replace(cols=e.cols.cpu()) for e in ragged]
+    err["tail_reduce"] = max(err["tail_reduce"], abs_err(got, u32(tr.tail_reduce_blocks_plain(cpu_blocks))))
+    raw = [words_to_digest(ragged_nat[:, i]) for i in range(RAGGED)]
+    start = 0
+    for row, k in zip(got, ragged_heights):
+        check(words_to_digest(row) == oracle.merkle_root_of_digests(raw[start : start + (1 << k)]),
+              f"tail_reduce_blocks: the root of block 2^{k} at {start} differs from hashlib")
+        start += 1 << k
+    check(tr.slice_root(ragged_dev, RAGGED, 14) == oracle.reduce_slice(raw, 14), "ragged slice root != hashlib")
+    print(f"tail_reduce: n = 1..1024 one block a launch; the {RAGGED}-digest ragged tail's {len(ragged)} blocks"
+          f" (2^{', 2^'.join(map(str, ragged_heights))}) in one launch; max |kernel - plain| = {err['tail_reduce']}")
     check(not any(err.values()), f"kernels disagree with their plain versions: {err}")
 
     # Times at the main path's shapes: one 2^16-leaf flush of each engine
@@ -516,41 +570,113 @@ def main() -> int:
           f" chain floor {(longest + 1) * t_comp:.4f} ms")
 
     slice_dev = torch.from_numpy(rng.integers(0, 2**32, size=(8, 1 << 20), dtype=np.uint32).view(np.int32)).to(dev)
-    roots16 = slice_dev[:, :16].contiguous()
+    roots16 = [tr.TailEntry(slice_dev[:, :16].contiguous(), 4, False)]  # a full slice's group roots
     roots1024 = slice_dev[:, :1024].contiguous()
     timings = {
         "fold_level": (lambda: tr.fold_level(slice_dev, 16), lambda: tr.fold_level_plain(slice_dev, 16),
                        "2^20 -> 2^19 digests, 16 groups"),
-        "tail_reduce": (lambda: tr.tail_reduce(roots16), lambda: tr.tail_reduce_plain(roots16),
-                        "16 group roots -> root"),
+        "tail_reduce": (lambda: tr.tail_reduce_blocks(roots16), lambda: tr.tail_reduce_blocks_plain(roots16),
+                        "16 natural-order group roots -> root"),
     }
     work["fold_level"] = dict(nodes=1 << 19, bytes=(1 << 20) * 32 + (1 << 19) * 32)
-    work["tail_reduce"] = dict(nodes=15, bytes=17 * 32)
+    work["tail_reduce"] = dict(nodes=15, levels=4, bytes=17 * 32)
     last = {}
     for name, (kern, plain, shape) in timings.items():
         ms[name], last[name] = cuda_ms(kern, 20)
         print(f"{name:17s} {shape:40s} kernel {ms[name]:.4f} ms")
     t1024, got1024 = cuda_ms(lambda: tr.tail_reduce(roots1024), 20)
-    print(f"{'tail_reduce':17s} {'1024 digests -> root':40s} kernel {t1024:.4f} ms")
+    print(f"{'tail_reduce':17s} {'1024 bit-reversed digests -> root':40s} kernel {t1024:.4f} ms")
+
+    # The ragged tail of stream 1, its two large blocks folded to 1024 digests
+    # by K2 beforehand: K3 block by block (the wrapper's one-block table, one
+    # launch a block, PR 4's pattern) and every block in one launch, in turns,
+    # each turn into an output of its own filled with -1.  Then the tail's
+    # whole device part, PR 4's dispatch (a gather, the K2 levels and one K3
+    # launch a block) against this one's (ragged_entries, one K3 launch), with
+    # the host's enqueue time of each.
+    def tail_launches(out, per_block: bool):
+        tables = ([t for k, e in enumerate(ragged) for t in tr.tail_tables([e], out[k : k + 1])] if per_block
+                  else tr.tail_tables(ragged, out))
+
+        def run():
+            for table in tables:
+                _build.launch("tail_reduce", "vkmr_tail_reduce", ctypes.addressof(table), _build.stream_of(out))
+            return out
+        return run
+
+    tail_turns, want_rows = [], u32(tr.tail_reduce_blocks(ragged))
+    for kind in ("block by block", "one launch", "one launch", "block by block"):
+        out = torch.full((len(ragged), 8), -1, dtype=torch.int32, device=dev)
+        t, _ = cuda_ms(tail_launches(out, kind == "block by block"), 20)
+        tail_turns.append((kind, t))
+        check(np.array_equal(u32(out), want_rows), f"tail_reduce: the ragged tail {kind} differs")
+    ms["tail_reduce ragged"] = (tail_turns[1][1] + tail_turns[2][1]) / 2
+    per_bucket_ms["tail_reduce"] = (tail_turns[0][1] + tail_turns[3][1]) / 2
+    print(f"{'tail_reduce':17s} {RAGGED}-digest ragged tail, K3 alone: in turns "
+          + ", ".join(f"{k} {t:.4f}" for k, t in tail_turns) + " ms")
+
+    def pr4_tail():
+        """The ragged tail's device part as PR 4 dispatched it."""
+        roots, start = [], 0
+        for k in ragged_heights:
+            block = ragged_dev[:, start : start + (1 << k)]
+            roots.append(block[:, 0].clone() if k == 0 else tr.reduce_words_body(tr.bitrev_fold_words(block, k), k))
+            start += 1 << k
+        return torch.stack(roots)
+
+    whole = {"PR 4 dispatch": pr4_tail, "one K3 launch": lambda: tr.tail_reduce_blocks(tr.ragged_entries(ragged_dev, RAGGED)[0])}
+    whole_turns = []
+    for kind in ("PR 4 dispatch", "one K3 launch", "one K3 launch", "PR 4 dispatch"):
+        (t, host), got = timed_with_host(whole[kind], 10), whole[kind]()
+        whole_turns.append((kind, t, host))
+        check(np.array_equal(u32(got), want_rows), f"ragged tail, {kind}: block roots differ")
+    print(f"{'tail_reduce':17s} {RAGGED}-digest ragged tail's device part (gathers, K2, K3): in turns "
+          + ", ".join(f"{k} {t:.4f} ms on the card, {h:.4f} ms of host enqueue" for k, t, h in whole_turns))
+
+    # A full grouped slice reduces without a gather: the group levels, then
+    # the 16 natural-order group roots straight into K3.
+    gathers, index_select = [], torch.Tensor.index_select
+
+    def counted(self, *args, **kwargs):
+        gathers.append(1)
+        return index_select(self, *args, **kwargs)
+
+    _build.reset_counts()
+    torch.Tensor.index_select = counted
+    try:
+        grouped_root = u32(tr.reduce_grouped_body(slice_dev, 20, 16))
+    finally:
+        torch.Tensor.index_select = index_select
+    grouped_launches = dict(_build.launches)
+    check(not gathers and grouped_launches == {"fold_level": 16, "tail_reduce": 1},
+          f"a grouped slice's reduction ran {len(gathers)} gathers and {grouped_launches}")
+    other_route = u32(tr.reduce_perfect_block(tr.group_bitrev_to_natural(slice_dev, 20, 16), 20))
+    check(np.array_equal(grouped_root, other_route), "grouped slice root differs from the natural-order route")
+    print(f"reduce_grouped_body, 2^20 digests in 16 groups: {grouped_launches}, no gather; root equals the"
+          f" natural-order route's")
+
+    # The shapes of tools/tail_variants.py, once each, against the plain version.
+    for title, entries in tail_variants.shapes(dev).items():
+        e = abs_err(u32(tr.tail_reduce_blocks(entries)),
+                    u32(tr.tail_reduce_blocks_plain([x._replace(cols=x.cols.cpu()) for x in entries])))
+        err["tail_reduce"] = max(err["tail_reduce"], e)
+    print(f"tail_reduce on the {len(tail_variants.shapes(dev))} shapes of tools/tail_variants.py:"
+          f" max |kernel - plain| = {err['tail_reduce']}")
     # The plain versions run after every kernel is timed: seconds of small
     # launches leave the SM clock low for a while after them.
     for name, (buckets, exact, n, shape) in flush_shapes.items():
-        plain_ms[name], want = cuda_ms(plain_of(buckets, n, exact), 1, warm=False)
+        plain_ms[name], want = cuda_ms(plain_of(buckets, n, exact), 1, warm=False, plain=True)
         e = abs_err(cols_of(kept[name], buckets), cols_of(want, buckets))
         err[name] = max(err[name], e)
         print(f"{name:17s} plain on the flush {plain_ms[name]:.2f} ms; max |kernel - plain| = {e}")
     for name, (kern, plain, shape) in timings.items():
-        plain_ms[name], want = cuda_ms(plain, 2)
+        plain_ms[name], want = cuda_ms(plain, 2, plain=True)
         e = abs_err(u32(last[name]), u32(want))
         err[name] = max(err[name], e)
         print(f"{name:17s} {shape:40s} plain {plain_ms[name]:.2f} ms, max |kernel - plain| = {e}")
     e = abs_err(u32(got1024), u32(tr.tail_reduce_plain(roots1024)))
     err["tail_reduce"] = max(err["tail_reduce"], e)
     print(f"{'tail_reduce':17s} {'1024 digests -> root':40s} max |kernel - plain| = {e}")
-    # A tail of n digests is log2(n) dependent levels of one node hash
-    # (three compressions) each, at least on its last node's thread.
-    print(f"tail_reduce chain floors at {t_comp * 1e3:.3f} us a compression: 16 digests {12 * t_comp:.4f} ms,"
-          f" 1024 digests {30 * t_comp:.4f} ms")
     check(not any(err.values()), f"kernels disagree with their plain versions at the main path's shapes: {err}")
     # Packed column c of a flush holds input leaf perm[order[c]].
     stream_cols = np.concatenate([np.arange(b.col, b.col + b.count) for b in srungs])
@@ -592,9 +718,15 @@ def main() -> int:
             check(run_launches.get(name, 0) <= flushes,
                   f"{title}: {run_launches.get(name, 0)} {name} launches for {flushes} flushes")
         check(root == want, f"{title}: engine root {root} != native host root {want}")
+        tail_on_card = count % (1 << 20) > engine.config.host_tail_leaves
+        k3 = run_launches.get("tail_reduce", 0)
+        check(k3 == stats["slices_completed"] + tail_on_card,
+              f"{title}: {k3} tail_reduce launches for {stats['slices_completed']} full slices"
+              f" and {'a' if tail_on_card else 'no'} ragged tail on the card")
         print(f"{title}: root {root[:16]}... == host root; {count / wall:,.0f} leaves/s,"
               f" {nbytes / wall / 1e9:.3f} GB/s payload, {wall:.3f} s wall;"
               f" {stats['slices_completed']} full slices")
+        print(f"  K3 launches: {k3}, one a full slice" + (", one for the ragged tail" if tail_on_card else ""))
         print("  stages:", json.dumps(stats["stages"]))
         print(f"  launches: {run_launches} for {flushes} packed flushes ("
               + ", ".join(f"{name} {n / flushes:.3f}" for name, n in sorted(run_launches.items()))
@@ -643,7 +775,7 @@ def main() -> int:
         err[name] = abs_err(u32(kern(x1.to(dev))), u32(plain(x1)))
         x256 = torch.from_numpy(pp.probe_input(seed, 256).view(np.int32)).to(dev)
         ms[name], got = cuda_ms(lambda: kern(x256), 20)
-        plain_ms[name], want = cuda_ms(lambda: plain(x256), 2)
+        plain_ms[name], want = cuda_ms(lambda: plain(x256), 2, plain=True)
         e = abs_err(u32(got), u32(want))
         err[name] = max(err[name], e)
         print(f"{name:17s} {'1 tile on CPU copies; 256 tiles':40s} kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.2f} ms,"
@@ -746,15 +878,16 @@ def main() -> int:
         "leaf_hash_exact": ("leaf_hash.cu", "vk_merkle_roots_tpu/ops/leaf_hash.py:61"),
         "leaf_hash_stream": ("leaf_hash.cu", "vk_merkle_roots_tpu/ops/leaf_hash.py:129"),
         "fold_level": ("tree_reduce.cu", "vk_merkle_roots_tpu/ops/tree_reduce.py:91"),
-        "tail_reduce": ("tree_reduce.cu", "vk_merkle_roots_tpu/ops/tree_reduce.py:157"),
+        "tail_reduce": ("tail_reduce.cuh", "vk_merkle_roots_tpu/ops/tree_reduce.py:157"),
         "alu_probe": ("perf_probe.cu", "vk_merkle_roots_tpu/ops/perf_probe.py:117"),
         "rot_probe": ("perf_probe.cu", "vk_merkle_roots_tpu/ops/perf_probe.py:188"),
     }
     # The least time for each timed call: its integer ALU-pipe instructions
     # (SHF, LOP3, IADD3 from the kernel's SASS, weighted by this run's trip
-    # counts) over 64 lanes a clock on each SM at the card's maximum SM clock,
-    # or its bytes (each input read once, each output written once) over
-    # 3.35 TB/s, whichever is longer.
+    # counts) over 64 lanes a clock on each SM at the card's maximum SM clock
+    # (for K3 the chain of its levels, if longer), or its bytes (each input
+    # read once, each output written once) over 3.35 TB/s, whichever is
+    # longer.
     clock_mhz = float(perf_model._smi("clocks.max.sm")[0])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     alu_rate = 64 * sms * clock_mhz * 1e6
@@ -779,6 +912,22 @@ def main() -> int:
     ms["leaf_hash_exact 2^18"] = t_quad
     ops["fold_level"] = work["fold_level"]["nodes"] * node_alu
     ops["tail_reduce"] = work["tail_reduce"]["nodes"] * node_alu
+    # K3 is bound by the chain of its levels: a level is one node hash on the
+    # warp that runs its rounds (K3's longest SASS loop), and a lone warp
+    # issues at best one instruction every second clock; its ALU-pipe
+    # instructions at that rate, at the card's maximum SM clock.
+    check(sass["tail_reduce"]["loop"] is not None, "tail_reduce: no level loop found in its SASS")
+    level_alu = alu(sass["tail_reduce"]["loop"])
+    level_ms = level_alu * 2 / (clock_mhz * 1e6) * 1e3
+    chain = {"tail_reduce": work["tail_reduce"]["levels"] * level_ms, "1024 digests": 10 * level_ms,
+             f"{RAGGED}-digest ragged tail": max(e.log2n for e in ragged) * level_ms}
+    ms["1024 digests"], ms[f"{RAGGED}-digest ragged tail"] = t1024, ms["tail_reduce ragged"]
+    for shape, t in chain.items():
+        print(f"tail_reduce chain bound, {shape}: {t / level_ms:.0f} levels x {level_alu} ALU-pipe instructions of the"
+              f" round warp x 2 clocks at {clock_mhz:.0f} MHz = {t:.5f} ms; kernel {ms[shape]:.4f} ms,"
+              f" {t / ms[shape]:.3f} of it")
+    print(f"tail_reduce ragged tail: block by block {per_bucket_ms["tail_reduce"]:.4f} ms, one launch"
+          f" {ms['tail_reduce ragged']:.4f} ms")
     for name in probes:
         tiles = 256
         ops[name] = alu(sass[name]["loop"]) * pp.PROBE_PASSES * tiles * pp.TILE
@@ -786,6 +935,7 @@ def main() -> int:
     bound = {}
     for name in [*replaces, "leaf_hash_exact 2^18"]:
         t_ops, t_bytes = ops[name] / alu_rate * 1e3, work[name]["bytes"] / 3.35e12 * 1e3
+        t_ops = max(t_ops, chain.get(name, 0.0))
         bound[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
         print(f"{name:17s} bound {bound[name][0]:.5f} ms by {bound[name][1]} ({ops[name]:.4g} ALU-pipe instructions"
               f" at {alu_rate:.4g}/s, {work[name]['bytes']} bytes at 3.35 TB/s); kernel {ms[name]:.4f} ms,"
@@ -796,7 +946,8 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": f"vk_merkle_roots_tpu_torch/csrc/{src}", "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
-         "bound_ms": bound[name][0], "bound_by": bound[name][1], "library_ms": None}
+         "bound_ms": bound[name][0], "bound_by": bound[name][1], "library_ms": None,
+         "chain_bound_ms": chain.get(name)}
         for name, (src, rep) in replaces.items()
     ]
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s, the kernels' build included")

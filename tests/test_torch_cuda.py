@@ -153,6 +153,103 @@ def test_tail_kernel_matches_oracle(cuda, log2n):
     assert root == oracle.merkle_root_of_digests([words_to_digest(nat[:, i]) for i in range(1 << log2n)])
 
 
+def _block_entries(cuda, log2ns, seed, bitrev):
+    """Tail entries of random digests on the card, their CPU twins and each
+    block's hashlib root; ``bitrev[k]`` says how block k is stored."""
+    rng = np.random.default_rng(seed)
+    entries, cpu, want = [], [], []
+    for k, log2n in enumerate(log2ns):
+        nat = rng.integers(0, 2**32, (8, 1 << log2n), dtype=np.uint32)
+        want.append(oracle.merkle_root_of_digests([words_to_digest(nat[:, i]) for i in range(1 << log2n)]))
+        cols = nat[:, bit_reverse_indices(log2n)] if bitrev[k] else nat
+        x = torch.from_numpy(np.ascontiguousarray(cols).view(np.int32))
+        cpu.append(tr.TailEntry(x, log2n, bitrev[k]))
+        entries.append(tr.TailEntry(x.to(cuda), log2n, bitrev[k]))
+    return entries, cpu, want
+
+
+def _roots(out):
+    return [words_to_digest(r) for r in _u32(out)]
+
+
+@pytest.mark.parametrize("bitrev", [False, True])
+def test_tail_blocks_every_size_in_one_launch(cuda, bitrev):
+    """Blocks of 1..1024 digests, natural or bit-reversed, in one K3 launch:
+    byte-exact against the plain version and hashlib."""
+    entries, cpu, want = _block_entries(cuda, range(11), 11 + bitrev, [bitrev] * 11)
+    _build.reset_counts()
+    out = tr.tail_reduce_blocks(entries)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"tail_reduce": 1}
+    assert np.array_equal(_u32(out), _u32(tr.tail_reduce_blocks_plain(cpu)))
+    assert _roots(out) == want
+
+
+@pytest.mark.parametrize("n_blocks,launches", [(20, 1), (40, 2)])
+def test_tail_table_of_many_blocks(cuda, n_blocks, launches):
+    """A table of 20 blocks of mixed sizes and layouts takes one launch; 40
+    take two, past the table's 32 entries; both agree with the plain version
+    and hashlib."""
+    rng = np.random.default_rng(n_blocks)
+    log2ns = [int(k) for k in rng.integers(0, 11, n_blocks)]
+    entries, cpu, want = _block_entries(cuda, log2ns, n_blocks, [bool(b) for b in rng.integers(0, 2, n_blocks)])
+    _build.reset_counts()
+    out = tr.tail_reduce_blocks(entries)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"tail_reduce": launches}
+    assert np.array_equal(_u32(out), _u32(tr.tail_reduce_blocks_plain(cpu)))
+    assert _roots(out) == want
+
+
+def test_ragged_tail_in_one_tail_launch(cuda):
+    """The 12345-digest tail of smoke stream 1 (8192 + 4096 + 32 + 16 + 8 +
+    1): two gathers, five K2 levels and one K3 launch, the slice root equal
+    to hashlib's at its own height and at a phantom height."""
+    nat = np.random.default_rng(12345).integers(0, 2**32, (8, 12345), dtype=np.uint32)
+    raw = [words_to_digest(nat[:, i]) for i in range(12345)]
+    cols = torch.from_numpy(nat.view(np.int32)).to(cuda)
+    for height in (14, 16):
+        _build.reset_counts()
+        got = tr.slice_root(cols, 12345, height)
+        assert dict(_build.launches) == {"fold_level": 5, "tail_reduce": 1}
+        assert got == oracle.reduce_slice(raw, height)
+    entries, _ = tr.ragged_entries(cols, 12345)
+    cpu = [e._replace(cols=e.cols.cpu()) for e in entries]
+    assert np.array_equal(_u32(tr.tail_reduce_blocks(entries)), _u32(tr.tail_reduce_blocks_plain(cpu)))
+
+
+def test_grouped_slice_tail_reads_natural_roots(cuda):
+    """A grouped slice's 16 group roots go to K3 in natural order: the group
+    levels, then one tail launch, no gather."""
+    log2n, k = 14, 10
+    digs = np.random.default_rng(16).integers(0, 2**32, (1 << log2n, 8), dtype=np.uint32)
+    g = 1 << k
+    idx = np.arange(1 << log2n)
+    store = np.empty_like(digs)
+    store[(idx // g) * g + bit_reverse_indices(k)[idx % g]] = digs
+    x = torch.from_numpy(np.ascontiguousarray(store.T).view(np.int32)).to(cuda)
+    _build.reset_counts()
+    root = words_to_digest(_u32(tr.reduce_grouped_body(x, log2n, k)))
+    assert dict(_build.launches) == {"fold_level": k, "tail_reduce": 1}
+    assert root == oracle.merkle_root_of_digests([words_to_digest(d) for d in digs])
+
+
+def test_engine_ragged_tail_costs_one_tail_launch(cuda):
+    """A ragged tail above host_tail_leaves reduces on the card in exactly
+    one K3 launch."""
+    from vk_merkle_roots_tpu_torch.native.lib import native_rndm_stream
+
+    n = (1 << 14) + 12345
+    stream = native_rndm_stream(1712489279, n, 127)
+    lines = stream.split(b"\n")[:-1]
+    e = CudaSha256D(device=cuda, config=EngineConfig(slice_log2=14, batch_leaves=1 << 12))
+    assert e.AddSpans(*split_lines(stream))
+    assert e.Drain()
+    _build.reset_counts()
+    assert e.Root() == oracle.merkle_root(lines).hex()
+    assert _build.launches["tail_reduce"] == 1 and not _build.plain_calls
+
+
 @pytest.mark.parametrize("batch", [256, 300])
 def test_engine_on_the_card_launches_only_kernels(cuda, batch):
     rng = np.random.default_rng(batch)
@@ -206,6 +303,11 @@ def test_wrappers_raise_on_cuda(cuda):
         lh.exact_hash_into(words.to(torch.int32), 1, 16, out.cpu(), 0)
     with pytest.raises(ValueError):
         tr.tail_reduce(torch.zeros((8, 2048), dtype=torch.int32, device=cuda))
+    x = torch.zeros((8, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tr.tail_reduce_blocks([tr.TailEntry(x, 4, False), tr.TailEntry(x.cpu(), 4, False)])
+    with pytest.raises(ValueError):
+        tr.tail_reduce_blocks([tr.TailEntry(x, 3, True)])
 
 
 @pytest.mark.parametrize("name", ["alu_probe", "rot_probe"])

@@ -97,21 +97,54 @@ def library_path() -> Path:
     return _BUILD / f"libvkmr_cuda_{h.hexdigest()[:16]}.so"
 
 
-def _compile(target: Path) -> None:
-    global build_seconds, build_log
+def _nvcc(target: Path, sources, flags) -> str:
+    """Compile ``sources`` into the shared library ``target`` with ``nvcc``
+    and ptxas's report; returns the compiler's output, raises if it fails."""
     _BUILD.mkdir(exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=target.stem + ".", suffix=".so.tmp", dir=_BUILD)
     os.close(fd)
-    cmd = [cuda_tool("nvcc"), *nvcc_flags(), "-Xptxas", "-v", "-o", tmp,
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
-    t0 = time.perf_counter()
+    cmd = [cuda_tool("nvcc"), *flags, "-Xptxas", "-v", "-o", tmp, *[str(s) for s in sources]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    return log
+
+
+def _compile(target: Path) -> None:
+    global build_seconds, build_log
+    t0 = time.perf_counter()
+    build_log = _nvcc(target, sorted(_CSRC.glob("*.cu")), nvcc_flags())
+    build_seconds = time.perf_counter() - t0
+
+
+def build_tool_library(source: Path, defines: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
+    """The CUDA library of a measurement tool (``tools/*.cu``, which include
+    headers of ``csrc/``) with the given ``-D`` flags, compiled into
+    ``_build/`` first if no library of the current sources and flags exists,
+    and the compiler's output (empty when it was already built)."""
+    flags = NVCC_FLAGS + list(defines)
+    h = hashlib.sha256()
+    for src in (source, *sorted(_CSRC.glob("*.cuh"))):
+        h.update(src.read_bytes())
+    h.update(" ".join(flags).encode())
+    target = _BUILD / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+    log = "" if target.exists() else _nvcc(target, [source], flags)
+    return ctypes.CDLL(str(target)), log
+
+
+def ptxas_usage(log: str) -> dict[str, str]:
+    """Each kernel's ``ptxas -v`` line (registers, shared memory, spills) in
+    an ``nvcc`` output, by mangled name."""
+    usage, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "Used" in line and kernel:
+            usage[kernel] = line.split(":", 1)[1].strip()
+    return usage
 
 
 def load() -> ctypes.CDLL:
@@ -128,14 +161,19 @@ def load() -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.vkmr_leaf_hash_exact.argtypes = [vp, i, vp]
         lib.vkmr_leaf_hash_stream.argtypes = [vp, i, vp]
-        lib.vkmr_leaf_table_bytes.restype = i
         from .ops.leaf_hash import LeafTable
+        from .ops.tree_reduce import TailTable
 
-        if lib.vkmr_leaf_table_bytes() != ctypes.sizeof(LeafTable):
-            raise RuntimeError(f"LeafTable is {lib.vkmr_leaf_table_bytes()} bytes in csrc/leaf_hash.cu but"
-                               f" {ctypes.sizeof(LeafTable)} in ops/leaf_hash.py")
+        lib.vkmr_leaf_table_bytes.restype = i
+        lib.vkmr_tail_table_bytes.restype = i
+        for name, struct, src, mod in (("leaf", LeafTable, "leaf_hash.cu", "leaf_hash"),
+                                       ("tail", TailTable, "tail_reduce.cuh", "tree_reduce")):
+            size = getattr(lib, f"vkmr_{name}_table_bytes")()
+            if size != ctypes.sizeof(struct):
+                raise RuntimeError(f"{struct.__name__} is {size} bytes in csrc/{src} but"
+                                   f" {ctypes.sizeof(struct)} in ops/{mod}.py")
         lib.vkmr_fold_level.argtypes = [vp, ll, vp, ll, ll, i, vp]
-        lib.vkmr_tail_reduce.argtypes = [vp, ll, i, vp, vp]
+        lib.vkmr_tail_reduce.argtypes = [vp, vp]
         lib.vkmr_alu_probe.argtypes = [vp, vp, ll, vp]
         lib.vkmr_rot_probe.argtypes = [vp, vp, ll, vp]
         for fn in ("vkmr_leaf_hash_exact", "vkmr_leaf_hash_stream", "vkmr_fold_level", "vkmr_tail_reduce",

@@ -4,7 +4,8 @@
 //   * fold_level_kernel  <- _fold_kernel (:91), launched by _fold_level_pallas
 //     (:103): one Merkle level, flat or within each of G contiguous groups.
 //   * tail_reduce_kernel <- _tail_kernel (:157), launched by
-//     _tail_reduce_pallas (:187): the last <= 10 levels in one launch.
+//     _tail_reduce_pallas (:187): the last <= 10 levels; here every perfect
+//     block of a tail in one launch (csrc/tail_reduce.cuh).
 //
 // fold_level_kernel is bound by integer issue: a node is three compressions
 // (data block, constant pad block, finalization) for 64 B read and 32 B
@@ -14,22 +15,20 @@
 // coalesces.  Unlike the JAX package, which leaves sub-tile levels to XLA,
 // every level above 1024 digests runs here, whatever its size.
 //
-// tail_reduce_kernel is bound by latency: <= 1024 digests leave at most 512
-// nodes per level, too few to fill the card, and each level waits for the
-// one before.  Design: one CTA keeps the digests in 32 KB of shared memory
-// and folds in place with __syncthreads() between levels, so ten levels cost
-// one launch and no device-memory round trips.
+// tail_reduce_kernel is bound by the chain of its levels; its design is in
+// csrc/tail_reduce.cuh.  tools/tail_variants.py measured the warp-specialised
+// form against the others (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kdebug.cuh"
 #include "sha256.cuh"
+#include "tail_reduce.cuh"
 
 namespace {
 
 constexpr int kFoldThreads = 256;
-constexpr int kTailMax = 1024;
-constexpr int kTailThreads = 512;
+constexpr int kTailShipped = vkmr_tail::kTailPairs;
 
 __global__ void __launch_bounds__(kFoldThreads)
 fold_level_kernel(const uint32_t* __restrict__ x, int64_t ld_in, uint32_t* __restrict__ out, int64_t ld_out,
@@ -50,35 +49,6 @@ fold_level_kernel(const uint32_t* __restrict__ x, int64_t ld_in, uint32_t* __res
   for (int j = 0; j < 8; ++j) out[j * ld_out + t] = o[j];
 }
 
-__global__ void __launch_bounds__(kTailThreads)
-tail_reduce_kernel(const uint32_t* __restrict__ x, int64_t ld, int log2n, uint32_t* __restrict__ out) {
-  __shared__ uint32_t s[8][kTailMax];
-  const int n = 1 << log2n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][i] = x[j * ld + i];
-  }
-  __syncthreads();
-  for (int half = n >> 1; half >= 1; half >>= 1) {
-    // Thread i reads columns i and i + half and writes column i only, so
-    // the fold is safe in place within a level.
-    for (int i = threadIdx.x; i < half; i += blockDim.x) {
-      uint32_t l[8], r[8], o[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        l[j] = s[j][i];
-        r[j] = s[j][i + half];
-      }
-      vkmr::node_hash_words(l, r, o);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][i] = o[j];
-    }
-    __syncthreads();
-  }
-  VKMR_KDEBUG_EMIT("tail_kernel root_word0", s[0][0]);
-  if (threadIdx.x < 8) out[threadIdx.x] = s[threadIdx.x][0];
-}
-
 }  // namespace
 
 extern "C" int vkmr_fold_level(const void* x, long long ld_in, void* out, long long ld_out, long long half_total,
@@ -89,9 +59,11 @@ extern "C" int vkmr_fold_level(const void* x, long long ld_in, void* out, long l
   return (int)cudaGetLastError();
 }
 
-extern "C" int vkmr_tail_reduce(const void* x, long long ld, int log2n, void* out, void* stream) {
-  if (log2n < 0 || (1 << log2n) > kTailMax) return (int)cudaErrorInvalidValue;
-  tail_reduce_kernel<<<1, kTailThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)x, ld, log2n,
-                                                                 (uint32_t*)out);
-  return (int)cudaGetLastError();
+extern "C" int vkmr_tail_table_bytes(void) { return (int)sizeof(vkmr_tail::TailTable); }
+
+// K3 over the table's t.n blocks: one cluster of 8 CTAs a block, or one CTA
+// a block when none has more than 128 digests.
+extern "C" int vkmr_tail_reduce(const void* table, void* stream) {
+  return (int)vkmr_tail::launch_tail<kTailShipped>(*(const vkmr_tail::TailTable*)table, 1u, 0, false,
+                                                   (cudaStream_t)stream);
 }

@@ -8,20 +8,25 @@ it for a CUDA tensor and runs the plain PyTorch version for a CPU tensor:
 
 * :func:`fold_level` (``csrc/tree_reduce.cu::fold_level_kernel``) replaces
   the Pallas ``_fold_kernel`` (``tree_reduce.py:91``), flat or per group;
-* :func:`tail_reduce` (``csrc/tree_reduce.cu::tail_reduce_kernel``) replaces
-  the Pallas ``_tail_kernel`` (``tree_reduce.py:157``): <= 1024 digests to
-  the root in one launch.
+* :func:`tail_reduce_blocks` (``csrc/tail_reduce.cuh::tail_reduce_kernel``)
+  replaces the Pallas ``_tail_kernel`` (``tree_reduce.py:157``): every
+  perfect block of <= 1024 digests of a table to its root in one launch,
+  each block in natural order or bit-reversed; :func:`tail_reduce` is its
+  one-block form.
 
 On the card every level above 1024 digests is one :func:`fold_level`
-launch and the rest one :func:`tail_reduce` launch, for blocks of any size:
-a fold in plain PyTorch would cost thousands of small launches per level.
-Ragged slices decompose into perfect blocks whose roots combine on the host
-(:func:`combine_ragged`), as in the JAX package.
+launch and the rest one :func:`tail_reduce_blocks` launch, for blocks of any
+size: a fold in plain PyTorch would cost thousands of small launches per
+level.  Ragged slices decompose into perfect blocks whose roots all come
+from one tail launch and combine on the host (:func:`combine_ragged`), as in
+the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,7 +36,28 @@ from ..utils.bitmath import bit_reverse_indices, ceil_log2, is_pow2
 from ..utils.hexutil import words_to_digest
 from . import sha256_core as core
 
-TAIL_MAX_LOG2 = 10  # the tail kernel's shared-memory capacity: 1024 digests
+TAIL_MAX_LOG2 = 10  # the tail kernel's capacity: 1024 digests a block
+MAX_TAIL_BLOCKS = 32  # kMaxTailBlocks of csrc/tail_reduce.cuh; more blocks take more launches
+
+
+class TailEntry(NamedTuple):
+    """One perfect block as the tail kernel takes it."""
+
+    cols: torch.Tensor  # (8, 2^log2n) int32 digest columns, unit column stride
+    log2n: int
+    bitrev: bool  # True: stored bit-reversed (fold input); False: natural order
+
+
+class _TailBlock(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("ld", ctypes.c_longlong), ("log2n", ctypes.c_int),
+                ("bitrev", ctypes.c_int), ("out_row", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+class TailTable(ctypes.Structure):
+    """``TailTable`` of ``csrc/tail_reduce.cuh``: the kernel's table."""
+
+    _fields_ = [("out", ctypes.c_void_p), ("n", ctypes.c_int), ("pad", ctypes.c_int),
+                ("b", _TailBlock * MAX_TAIL_BLOCKS)]
 
 
 @lru_cache(maxsize=None)
@@ -86,28 +112,68 @@ def fold_level(x: torch.Tensor, groups: int = 1) -> torch.Tensor:
 
 
 def tail_reduce_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of the tail kernel: fold level by level to (8,)."""
+    """Plain version of the tail kernel on one bit-reversed block: fold
+    level by level to (8,)."""
     while x.shape[1] > 1:
         x = fold_level_plain(x)
     return x[:, 0].clone()
 
 
+def tail_reduce_blocks_plain(entries) -> torch.Tensor:
+    """Plain version of :func:`tail_reduce_blocks`: each block (natural
+    order bit-reversed first) through :func:`tail_reduce_plain`."""
+    return torch.stack([tail_reduce_plain(e.cols if e.bitrev else bitrev_fold_words(e.cols, e.log2n))
+                        for e in entries])
+
+
+def _check_entries(entries) -> None:
+    if not entries:
+        raise ValueError("the tail kernel takes at least one block")
+    for e in entries:
+        _check_cols(e.cols)
+        if not (isinstance(e.log2n, int) and 0 <= e.log2n <= TAIL_MAX_LOG2 and e.cols.shape[1] == 1 << e.log2n):
+            raise ValueError(f"the tail takes a power of two <= 1024 digests a block, got {tuple(e.cols.shape)}"
+                             f" with log2n={e.log2n}")
+        if e.cols.device != entries[0].cols.device:
+            raise ValueError(f"blocks on {e.cols.device} and {entries[0].cols.device}")
+
+
+def tail_tables(entries, out: torch.Tensor) -> list[TailTable]:
+    """The kernel tables of ``entries``, one per launch: blocks with the most
+    digests first, each with its output row (its index in ``entries``); past
+    :data:`MAX_TAIL_BLOCKS` blocks they go on in another table."""
+    order = sorted(range(len(entries)), key=lambda k: -entries[k].log2n)
+    tables = []
+    for lo in range(0, len(order), MAX_TAIL_BLOCKS):
+        part = order[lo : lo + MAX_TAIL_BLOCKS]
+        table = TailTable(out=out.data_ptr(), n=len(part))
+        for j, k in enumerate(part):
+            e = entries[k]
+            table.b[j] = _TailBlock(e.cols.data_ptr(), e.cols.stride(0), e.log2n, int(e.bitrev), k, 0)
+        tables.append(table)
+    return tables
+
+
+def tail_reduce_blocks(entries) -> torch.Tensor:
+    """Roots of perfect blocks of <= 1024 digests each: a list of
+    :class:`TailEntry` -> (B, 8) int32 root words, row k for ``entries[k]``,
+    not yet read back.  One kernel launch on the card (per
+    :data:`MAX_TAIL_BLOCKS` blocks), the plain version on the CPU."""
+    _check_entries(entries)
+    if entries[0].cols.device.type == "cpu":
+        _build.plain_calls["tail_reduce"] += 1
+        return tail_reduce_blocks_plain(entries)
+    out = torch.empty((len(entries), 8), dtype=torch.int32, device=entries[0].cols.device)
+    with torch.cuda.device(out.device):
+        for table in tail_tables(entries, out):
+            _build.launch("tail_reduce", "vkmr_tail_reduce", ctypes.addressof(table), _build.stream_of(out))
+    return out
+
+
 def tail_reduce(x: torch.Tensor) -> torch.Tensor:
     """(8, n <= 1024) bit-reversed digest columns -> (8,) root words."""
     _check_cols(x)
-    n = x.shape[1]
-    if not (is_pow2(n) and n <= 1 << TAIL_MAX_LOG2):
-        raise ValueError(f"the tail takes a power of two <= 1024 digests, got {n}")
-    if x.device.type == "cpu":
-        _build.plain_calls["tail_reduce"] += 1
-        return tail_reduce_plain(x)
-    out = torch.empty(8, dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "tail_reduce", "vkmr_tail_reduce",
-            x.data_ptr(), x.stride(0), n.bit_length() - 1, out.data_ptr(), _build.stream_of(x),
-        )
-    return out
+    return tail_reduce_blocks([TailEntry(x, x.shape[1].bit_length() - 1, True)])[0]
 
 
 def reduce_words_body(x: torch.Tensor, log2n: int) -> torch.Tensor:
@@ -128,17 +194,16 @@ def reduce_grouped_body(x: torch.Tensor, log2n: int, group_log2: int) -> torch.T
     The array is 2^(log2n - group_log2) contiguous groups in arrival order,
     each holding its digests at the bit reversal of their in-group index.
     The in-group levels fold every group at once down to one root per
-    group; the group roots, in natural order, are then bit-reversed with one
-    ``index_select`` and the cross-group levels run as a plain reduction.
-    Handing off at one digest per group makes the JAX version's handoff
-    transpose vanish."""
+    group; the group roots, in natural order, then reduce as a perfect
+    block: the tail kernel takes natural order as it is, so handing off at
+    one digest per group needs neither the JAX version's handoff transpose
+    nor a gather."""
     if group_log2 >= log2n:
         return reduce_words_body(x, log2n)
     groups = 1 << (log2n - group_log2)
     for _ in range(group_log2):
         x = fold_level(x, groups=groups)
-    y = x.index_select(1, bitrev_index(log2n - group_log2, x.device))
-    return reduce_words_body(y, log2n - group_log2)
+    return reduce_perfect_block(x, log2n - group_log2)
 
 
 def group_bitrev_to_natural(x: torch.Tensor, log2n: int, group_log2: int) -> torch.Tensor:
@@ -160,13 +225,25 @@ def bitrev_fold_words(cols_nat: torch.Tensor, log2n: int) -> torch.Tensor:
     return cols_nat.index_select(1, bitrev_index(log2n, cols_nat.device))
 
 
+def _tail_entry(cols_nat: torch.Tensor, log2n: int) -> TailEntry:
+    """The tail kernel's entry for a perfect block of natural-order columns:
+    the columns as they lie up to 1024 digests; above, bit-reversed with one
+    gather and folded down to 1024 digests through :func:`fold_level`."""
+    if log2n <= TAIL_MAX_LOG2:
+        return TailEntry(cols_nat, log2n, False)
+    x = bitrev_fold_words(cols_nat, log2n)
+    while x.shape[1] > 1 << TAIL_MAX_LOG2:
+        x = fold_level(x)
+    return TailEntry(x, TAIL_MAX_LOG2, True)
+
+
 def reduce_perfect_block(cols_nat: torch.Tensor, log2n: int) -> torch.Tensor:
     """Root of a perfect 2^log2n-leaf subtree from natural-order columns
     (``tree_reduce.py:401``); an (8,) int32 tensor on the input's device,
     not yet read back."""
     if log2n == 0:
         return cols_nat[:, 0].clone()
-    return reduce_words_body(bitrev_fold_words(cols_nat, log2n), log2n)
+    return tail_reduce_blocks([_tail_entry(cols_nat, log2n)])[0]
 
 
 def combine_ragged(block_roots: list[tuple[bytes, int]], height: int) -> bytes:
@@ -190,24 +267,32 @@ def combine_ragged(block_roots: list[tuple[bytes, int]], height: int) -> bytes:
     return cur
 
 
+def ragged_entries(cols_nat: torch.Tensor, count: int) -> tuple[list[TailEntry], list[int]]:
+    """The tail kernel's entries for the perfect blocks of the binary
+    decomposition of ``count`` natural-order columns, largest first, and
+    each block's height."""
+    entries, heights, start = [], [], 0
+    while count:
+        k = count.bit_length() - 1
+        entries.append(_tail_entry(cols_nat[:, start : start + (1 << k)], k))
+        heights.append(k)
+        start += 1 << k
+        count -= 1 << k
+    return entries, heights
+
+
 def slice_root(cols_nat: torch.Tensor, count: int, height: int) -> bytes:
     """Root of one slice (``tree_reduce.py:439``): ``count`` natural-order
     digest columns reduced through exactly ``height`` levels (phantom full
     height for a ragged slice).  Every perfect block of the binary
-    decomposition is reduced on the device before one stacked readback."""
+    decomposition reduces in one tail launch (blocks above 1024 digests
+    fold down to 1024 first) before one readback of the stacked roots."""
     if count < 1 or count > (1 << height):
         raise ValueError(f"count={count} out of range for height={height}")
     if count == 1 << height:
         return words_to_bytes(reduce_perfect_block(cols_nat, height))
-    roots, heights = [], []
-    start, remaining = 0, count
-    while remaining:
-        k = remaining.bit_length() - 1
-        roots.append(reduce_perfect_block(cols_nat[:, start : start + (1 << k)], k))
-        heights.append(k)
-        start += 1 << k
-        remaining -= 1 << k
-    stacked = torch.stack(roots).cpu().numpy().view(np.uint32)
+    entries, heights = ragged_entries(cols_nat, count)
+    stacked = tail_reduce_blocks(entries).cpu().numpy().view(np.uint32)
     return combine_ragged([(words_to_digest(w), k) for w, k in zip(stacked, heights)], height)
 
 

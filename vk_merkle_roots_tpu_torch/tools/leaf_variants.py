@@ -28,12 +28,8 @@ CUDA card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
-import os
-import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -53,27 +49,10 @@ TWO_LEAVES = (2, 3)
 
 def build() -> tuple[ctypes.CDLL, str]:
     """The variant library, compiled first if no library of the current
-    sources exists, and ptxas's report of it."""
+    sources exists, and the compiler's output."""
     from .. import _build
 
-    h = hashlib.sha256()
-    for src in (_SOURCE, _build._CSRC / "sha256.cuh"):
-        h.update(src.read_bytes())
-    h.update(" ".join(_build.NVCC_FLAGS).encode())
-    target = _build._BUILD / f"libvkmr_leaf_variants_{h.hexdigest()[:16]}.so"
-    log = ""
-    if not target.exists():
-        _build._BUILD.mkdir(exist_ok=True)
-        fd, tmp = tempfile.mkstemp(prefix=target.stem + ".", suffix=".so.tmp", dir=_build._BUILD)
-        os.close(fd)
-        proc = subprocess.run([_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(_SOURCE)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
+    lib, log = _build.build_tool_library(_SOURCE)
     lib.vkmrv_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.vkmrv_launch.restype = ctypes.c_int
     lib.vkmrv_leaf_table_bytes.restype = ctypes.c_int
@@ -81,8 +60,10 @@ def build() -> tuple[ctypes.CDLL, str]:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Mean ms per call over ``reps`` calls after 50 ms of warm-up; the card
-    spins ~2.5 ms before the window opens, so every launch is queued in it."""
+    """Mean ms per call over ``reps`` calls after 50 ms of warm-up.  The card
+    spins before the window opens, and the window counts only if every
+    launch was queued while it still spun (the start event not yet reached);
+    else it runs again after a spin four times as long."""
     import torch
 
     t_warm = time.perf_counter()
@@ -90,13 +71,17 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         fn()
         torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(5_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    for spin in (5_000_000, 20_000_000, 80_000_000, 320_000_000):  # ~2.5 ms to ~160 ms
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+    raise RuntimeError("the host could not queue a timing window's launches within a ~160 ms spin")
 
 
 def shapes(dev) -> dict:
@@ -144,12 +129,7 @@ def main() -> int:
         raise RuntimeError("LeafTable of tools/leaf_variants.cu differs from ops/leaf_hash.py's")
     _build.load()
     build_s = time.perf_counter() - t0
-    ptxas, kernel = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1]
-        elif "Used" in line and kernel:
-            ptxas[kernel] = line.split(":", 1)[1].strip()
+    ptxas = _build.ptxas_usage(log)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
     result = {"card": card(dev), "build_seconds": build_s, "ptxas": ptxas, "reps": REPS, "shapes": {}}
