@@ -56,12 +56,22 @@ Phases, each fatal on failure:
    each the oracle's root with one ``ndev x 32 B`` gather; two ranks of
    ``python -m vk_merkle_roots_tpu_torch.parallel.distributed`` as
    subprocesses, both printing the oracle root twice; ``dryrun_multichip``
-   on the device list.
+   on the device list;
+9. randomized differential: 48 seeded trials of ``tools/fuzz.py`` on the
+   card, each drawing its config (slice 2^3-2^16, grouped or natural batches,
+   host or device tails, pack-ahead 0-3, 1-8 KB leaves, host-routed leaves,
+   ``keep_digests``), its leaves and its calls (``AddMany`` chunks,
+   mid-stream ``Root()``, ``Drain()``, ``Reset()``) from its seed, trials 2
+   and 3 of every 16 on ``MeshCudaSha256D`` over phase 8's device list; every
+   root must equal the native host root and every proof verify, K1-K4 must
+   have launched and no plain path run; each failing check prints its
+   trial's seed and config, and the phase fails after the last trial.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path, its largest difference from the plain version, both times,
 its bound (ALU-pipe issue from its SASS, or bytes; for K3 also the chain of
-its levels, ``chain_bound_ms``) and no library time (no PyTorch op computes
+its levels and for K4 the chain of its longest leaf's compressions, each
+counted as the rounds of K3's round warp, ``chain_bound_ms``) and no library time (no PyTorch op computes
 SHA-256); the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without a CUDA device or outside the
 repository.
@@ -416,6 +426,38 @@ def multi_device_phase(smi: str, stream: bytes, cuda_ms) -> None:
         for proc in ranks:
             proc.kill()
             proc.wait()
+    print(smi)
+
+
+def randomized_phase(smi: str) -> None:
+    """Phase 9: the seeded randomized differential of ``tools/fuzz.py`` on
+    the card; see the module docstring.  ``fuzz.run`` prints each failing
+    check with its trial's seed and config and resets the kernel counts
+    before the first trial."""
+    import torch
+
+    from vk_merkle_roots_tpu_torch import _build
+    from vk_merkle_roots_tpu_torch.tools import fuzz
+
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(cards)] if cards >= 2 else [torch.device("cuda", 0)] * 2
+    trials = [fuzz.draw_trial(i) for i in range(48)]
+    summary = fuzz.run(trials, devices)
+    torch.cuda.synchronize()
+    launches, plain = dict(_build.launches), dict(_build.plain_calls)
+    print(f"launches in the randomized trials: {launches}; plain calls: {plain}")
+    for name in ("leaf_hash_exact", "leaf_hash_stream", "fold_level", "tail_reduce"):
+        check(launches.get(name, 0) > 0, f"kernel {name} never launched in the randomized trials")
+    check(not plain, f"plain PyTorch paths ran in the randomized trials: {plain}")
+    check(summary["trials"] == len(trials), f"randomized trials: {summary}")
+    check(summary["mismatches"] == 0, f"{summary['mismatches']} mismatches in the randomized trials, each printed"
+          f" above with its trial's seed and config")
+    print(f"randomized differential: {summary['trials']} trials ({', '.join(f'{n} {k}' for k, n in summary['kinds'].items())}),"
+          f" {summary['leaves']} leaves, {summary['roots']} roots and {summary['proofs']} proofs checked,"
+          f" {summary['mismatches']} mismatches; largest K1 table {summary['leaf_table_max']} buckets, K4 table"
+          f" {summary['stream_table_max']} rungs, K3 table {summary['tail_table_max']} blocks; K3 cluster launches"
+          f" {summary['tail_cluster_launches']} of {summary['tail_launches']}; {summary['wall_s']:.1f} s of trials"
+          f" on {', '.join(map(str, devices))}")
     print(smi)
 
 
@@ -1042,7 +1084,13 @@ def main() -> int:
     multi_device_phase(smi, stream1, cuda_ms)
     print(f"multi-device phase {time.perf_counter() - t0:.1f} s wall")
 
-    # -- 9. result -------------------------------------------------------------
+    # -- 9. randomized differential ----------------------------------------------
+    phase("randomized differential: 48 seeded engine trials on the card")
+    t0 = time.perf_counter()
+    randomized_phase(smi)
+    print(f"randomized differential phase {time.perf_counter() - t0:.1f} s wall")
+
+    # -- 10. result ------------------------------------------------------------
     phase("result")
     launches.update({name: roofline_launches[name] for name in probes})
     replaces = {
@@ -1056,7 +1104,7 @@ def main() -> int:
     # The least time for each timed call: its integer ALU-pipe instructions
     # (SHF, LOP3, IADD3 from the kernel's SASS, weighted by this run's trip
     # counts) over 64 lanes a clock on each SM at the card's maximum SM clock
-    # (for K3 the chain of its levels, if longer), or its bytes (each input
+    # (for K3 and K4 a chain, if longer), or its bytes (each input
     # read once, each output written once) over 3.35 TB/s, whichever is
     # longer.
     clock_mhz = float(perf_model._smi("clocks.max.sm")[0])
@@ -1099,17 +1147,34 @@ def main() -> int:
               f" {t / ms[shape]:.3f} of it")
     print(f"tail_reduce ragged tail: block by block {per_bucket_ms["tail_reduce"]:.4f} ms, one launch"
           f" {ms['tail_reduce ragged']:.4f} ms")
+    # K4 is bound by the chain of its longest leaf: its compressions, and the
+    # finalization's, one after another on one lane.  Only a compression's
+    # rounds lie on that chain (the message schedule depends on the block
+    # alone; K3 runs it on another warp), so each costs a third of the
+    # round warp's level of three compressions, at one instruction every
+    # second clock.  K4's block loop, its schedule included, is shown beside.
+    round_alu = level_alu / 3
+    chain["leaf_hash_stream"] = (longest + 1) * round_alu * 2 / (clock_mhz * 1e6) * 1e3
+    print(f"leaf_hash_stream chain bound, the stream flush's longest leaf: ({longest} + 1) compressions x"
+          f" {round_alu:.1f} ALU-pipe instructions of rounds (K3's round warp {level_alu} / 3) x 2 clocks at"
+          f" {clock_mhz:.0f} MHz = {chain['leaf_hash_stream']:.5f} ms; kernel {ms['leaf_hash_stream']:.4f} ms,"
+          f" {chain['leaf_hash_stream'] / ms['leaf_hash_stream']:.3f} of it; K4's block loop"
+          f" {alu(sass['leaf_hash_stream']['loop'])} ALU-pipe instructions a compression with its schedule; one"
+          f" 65-compression leaf alone through the shipped loop {t_lone:.4f} ms; {smi}")
     for name in probes:
         tiles = 256
         ops[name] = alu(sass[name]["loop"]) * pp.PROBE_PASSES * tiles * pp.TILE
         work[name] = dict(bytes=tiles * (pp.PROBE_CHAINS + 1) * pp.TILE * 4)
     bound = {}
     for name in [*replaces, "leaf_hash_exact 2^18"]:
-        t_ops, t_bytes = ops[name] / alu_rate * 1e3, work[name]["bytes"] / 3.35e12 * 1e3
-        t_ops = max(t_ops, chain.get(name, 0.0))
+        t_issue, t_bytes = ops[name] / alu_rate * 1e3, work[name]["bytes"] / 3.35e12 * 1e3
+        t_ops = max(t_issue, chain.get(name, 0.0))
         bound[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        print(f"{name:17s} bound {bound[name][0]:.5f} ms by {bound[name][1]} ({ops[name]:.4g} ALU-pipe instructions"
-              f" at {alu_rate:.4g}/s, {work[name]['bytes']} bytes at 3.35 TB/s); kernel {ms[name]:.4f} ms,"
+        binds = "bytes" if t_bytes > t_ops else "chain" if t_ops > t_issue else "issue"
+        print(f"{name:17s} bound {bound[name][0]:.5f} ms by {bound[name][1]}, the {binds} binding (issue {t_issue:.5f}"
+              f" ms: {ops[name]:.4g} ALU-pipe instructions at {alu_rate:.4g}/s; chain"
+              f" {'%.5f ms' % chain[name] if name in chain else 'none'}; bytes {t_bytes:.5f} ms:"
+              f" {work[name]['bytes']} bytes at 3.35 TB/s); kernel {ms[name]:.4f} ms,"
               f" {bound[name][0] / ms[name]:.3f} of the bound")
     print(f"per-bucket launches (one per bucket, as before): leaf_hash_exact {per_bucket_ms['leaf_hash_exact']:.4f} ms,"
           f" leaf_hash_stream {per_bucket_ms['leaf_hash_stream']:.4f} ms a flush; one 64-block leaf {t_lone:.4f} ms;"

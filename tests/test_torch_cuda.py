@@ -387,3 +387,17 @@ def test_sharded_root_gather_audit_on_the_cards(cuda):
     assert mesh.gathers == [(len(devices), 8)] and not _build.plain_calls
     for name in ("leaf_hash_exact", "fold_level", "tail_reduce"):
         assert all(_build.device_launches[name, d.index] > 0 for d in devices)
+
+
+def test_randomized_differential_on_the_card(cuda):
+    """The first 8 trials of chip_smoke.py's phase 9 (tools/fuzz.py): the
+    14-block device tail, the cluster tail, MESH round robin and sharded over
+    the card list, and four drawn trials; every root the native host root,
+    K1-K4 launched and no plain path run."""
+    from vk_merkle_roots_tpu_torch.tools import fuzz
+
+    summary = fuzz.run([fuzz.draw_trial(i) for i in range(8)], _card_list(), log=lambda line: None)
+    assert summary["trials"] == 8 and summary["mismatches"] == 0, summary["failures"]
+    assert not _build.plain_calls
+    assert all(_build.launches[k] > 0 for k in ("leaf_hash_exact", "leaf_hash_stream", "fold_level", "tail_reduce"))
+    assert summary["tail_table_max"] >= 14 and summary["tail_cluster_launches"] > 0

@@ -393,3 +393,123 @@ def test_every_native_and_cuda_source_is_package_data():
         if not covered:
             missing.append(str(path.relative_to(REPO)))
     assert not missing, missing
+
+
+# Public names of the JAX package's JAX-free modules that the port leaves out
+# by design, each with the reason.
+JAX_ONLY = {
+    "config.enable_persistent_cache": "turns on JAX's compilation cache; the port's kernels are built once by"
+                                      " _build and kept by content hash",
+    "config.EngineConfig.backend": "the Pallas/XLA switch of the JAX engine; the port has one kernel per device kind",
+    "config.EngineConfig.stats_sample_every": "the JAX engine's sampled device timing through sync round trips;"
+                                              " the port times every flush with CUDA events",
+    "utils.bitmath.pow2_env": "reads the Pallas grids' tile knobs (VKMR_*_TILES); no CUDA kernel of the port"
+                              " takes its grid from the environment",
+}
+SURFACE_MODULES = ["oracle", "packing", "constants", "ingest", "config", "utils", "utils.bitmath", "utils.hexutil",
+                   "utils.log", "utils.timing", "models.base", "models.cpu", "tools.rndm", "tools.strm",
+                   "tools.verify"]
+
+
+def _public_surface(module: str) -> list[str]:
+    """Public names of the JAX package's ``module``, read from its source
+    (importing it is not needed): top-level functions, classes, constants and
+    a package's re-exports, and each class's public methods and fields, as
+    ``module.name`` and ``module.Class.member``."""
+    parts = module.split(".")
+    path = REPO.joinpath("vk_merkle_roots_tpu", *parts)
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ClassDef):
+            names.append(node.name)
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    names.append(f"{node.name}.{sub.name}")
+                elif isinstance(sub, ast.AnnAssign) and isinstance(sub.target, ast.Name):
+                    names.append(f"{node.name}.{sub.target.id}")
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.append(node.target.id)
+        elif isinstance(node, ast.ImportFrom) and node.level == 1 and path.name == "__init__.py":
+            names += [a.asname or a.name for a in node.names]
+    return [f"{module}.{n}" for n in names if not any(p.startswith("_") for p in n.split("."))]
+
+
+def test_surface_check_reads_classes_and_reexports():
+    assert "oracle.merkle_proof" in _public_surface("oracle")
+    packing = _public_surface("packing")
+    assert {"packing.Bucket.leaf_words", "packing.Bucket.counts", "packing.pack_spans"} <= set(packing)
+    assert not any(".__" in n or "._" in n for n in packing)
+    assert {"utils.largest_pow2_le", "utils.StopWatch"} <= set(_public_surface("utils"))
+    assert "config.EngineConfig.backend" in _public_surface("config")
+
+
+def _port_has(module: str, full: str) -> bool:
+    """Whether the port's ``module`` has the JAX name ``full`` (a dataclass
+    field counts as a class member)."""
+    import importlib
+
+    obj = importlib.import_module(f"vk_merkle_roots_tpu_torch.{module}")
+    for part in full[len(module) + 1 :].split("."):
+        fields = getattr(obj, "__dataclass_fields__", {})
+        if part in fields:
+            obj = fields[part]
+        elif hasattr(obj, part):
+            obj = getattr(obj, part)
+        else:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("module", SURFACE_MODULES)
+def test_port_has_the_jax_modules_public_surface(module):
+    """Every public name of the JAX package's module exists in the port's
+    module of the same path, a class's methods and dataclass fields
+    included, unless it is listed in :data:`JAX_ONLY`."""
+    missing = [n for n in _public_surface(module) if n not in JAX_ONLY and not _port_has(module, n)]
+    assert not missing, missing
+
+
+def test_jax_only_names_are_current():
+    """Each name of :data:`JAX_ONLY` is public in the JAX package and still
+    absent from the port."""
+    owners = {n: m for m in SURFACE_MODULES for n in _public_surface(m)}
+    assert set(JAX_ONLY) <= set(owners), set(JAX_ONLY) - set(owners)
+    assert not [n for n in JAX_ONLY if _port_has(owners[n], n)]
+
+
+def test_new_surface_functions_equal_jax():
+    """The functions the port gained for the surface, on seeded inputs."""
+    from vk_merkle_roots_tpu.utils import bitmath as jb
+    from vk_merkle_roots_tpu.utils import hexutil as jh
+    from vk_merkle_roots_tpu.utils import log as jl
+    from vk_merkle_roots_tpu_torch.utils import hexutil as ph
+    from vk_merkle_roots_tpu_torch.utils import log as pl
+
+    rng = np.random.default_rng(77)
+    for n in (1, 2, 31, 64, 100):
+        leaves = _leaves(n, rng.integers(0, 200, n))
+        assert [port_oracle.sha256(x) for x in leaves] == [jax_oracle.sha256(x) for x in leaves]
+        for i in sorted({0, n // 3, n - 1}):
+            assert port_oracle.merkle_proof(leaves, i) == jax_oracle.merkle_proof(leaves, i)
+        with pytest.raises(IndexError):
+            port_oracle.merkle_proof(leaves, n)
+    with pytest.raises(IndexError):
+        port_oracle.merkle_proof([b"a", b"b"], 2)
+    leaves = _leaves(9, np.concatenate([rng.integers(0, 500, 1500), rng.integers(520, 2000, 20)]))
+    ours = port_packing.pack_spans(*_spans(leaves), max_device_blocks=24)
+    ref = jax_packing.pack_spans(*_spans(leaves), max_device_blocks=24)
+    for a, b in zip(ours.buckets, ref.buckets):
+        for i in sorted({0, a.count // 2, a.count - 1, min(a.count - 1, 1030)}):
+            assert np.array_equal(a.leaf_words(i), b.leaf_words(i))
+    for n in (1, 2, 3, 1000, 1 << 40):
+        assert port_bitmath.largest_pow2_le(n) == jb.largest_pow2_le(n)
+    digest = port_oracle.sha256d(b"abc")
+    assert ph.digest_to_hex(digest) == jh.digest_to_hex(digest)
+    assert np.array_equal(ph.digest_to_words(digest), jh.digest_to_words(digest))
+    assert ph.words_to_digest(ph.digest_to_words(digest)) == digest
+    assert pl.get_logger().name == jl.get_logger().name

@@ -21,7 +21,9 @@ Makefile.
 Each kernel wrapper counts its launches in :data:`launches` (and by card in
 :data:`device_launches`) and each plain PyTorch fallback its calls in
 :data:`plain_calls`, so a run can show which path it went through, and on
-which cards.
+which cards.  A launch from a kernel table also records the table's size in
+:data:`table_max` and, if its CTAs ran in clusters, counts in
+:data:`cluster_launches`.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ NVCC_FLAGS = [
 launches: collections.Counter = collections.Counter()
 device_launches: collections.Counter = collections.Counter()  # (kernel, CUDA device index) -> launches
 plain_calls: collections.Counter = collections.Counter()
+table_max: collections.Counter = collections.Counter()  # kernel -> most table entries (buckets, blocks) in one launch
+cluster_launches: collections.Counter = collections.Counter()  # kernel -> launches in clusters of CTAs
 
 _lock = threading.Lock()
 _host_lock = threading.Lock()
@@ -68,6 +72,8 @@ def reset_counts() -> None:
     launches.clear()
     device_launches.clear()
     plain_calls.clear()
+    table_max.clear()
+    cluster_launches.clear()
 
 
 def _sources() -> list[Path]:
@@ -304,11 +310,12 @@ def build_cpu_cli() -> Path | None:
     return target
 
 
-def launch(name: str, fn: str, *args) -> None:
+def launch(name: str, fn: str, *args, entries: int = 0, cluster: bool = False) -> None:
     """Call the C launcher ``fn`` on the current CUDA device (every wrapper
     enters its tensors' device first) and raise if the launch was refused
     (``cudaGetLastError()`` != 0); count the launch under ``name``, and under
-    ``(name, device index)``."""
+    ``(name, device index)``; record a kernel table of ``entries`` entries,
+    and a launch in clusters of CTAs."""
     import torch
 
     lib = load()
@@ -318,6 +325,10 @@ def launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} (error {rc})")
     launches[name] += 1
     device_launches[name, torch.cuda.current_device()] += 1
+    if entries:
+        table_max[name] = max(table_max[name], entries)
+    if cluster:
+        cluster_launches[name] += 1
 
 
 def stream_of(t) -> int:

@@ -33,6 +33,7 @@ from ..config import EngineConfig
 from ..ops.leaf_hash import leaf_hashes
 from ..ops.tree_reduce import group_bitrev_to_natural
 from ..parallel.mesh import make_mesh, make_sharded_reduce_fn, shard_digests
+from ..utils.bitmath import largest_pow2_le
 from .cuda import CudaSha256D
 
 
@@ -60,7 +61,7 @@ class MeshCudaSha256D(CudaSha256D):
         """The cached sharded slice reducer over the power-of-two prefix of
         the devices."""
         if self._sharded_fn is None:
-            ndev = 1 << (len(self._devices).bit_length() - 1)
+            ndev = largest_pow2_le(len(self._devices))
             self._mesh = make_mesh(self._devices, n_devices=ndev)
             self._sharded_fn = make_sharded_reduce_fn(self._mesh, self.config.slice_log2)
         return self._mesh, self._sharded_fn

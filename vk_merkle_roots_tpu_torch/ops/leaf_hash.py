@@ -137,7 +137,7 @@ def stream_hash_plain(words: torch.Tensor, counts: torch.Tensor, count: int) -> 
 def _launch(name: str, fn: str, buckets, out: torch.Tensor, leaves_per_cta: int) -> None:
     with torch.cuda.device(out.device):
         for table, ctas in launch_tables(buckets, out, leaves_per_cta):
-            _build.launch(name, fn, ctypes.addressof(table), ctas, _build.stream_of(out))
+            _build.launch(name, fn, ctypes.addressof(table), ctas, _build.stream_of(out), entries=table.n)
 
 
 def exact_hash_buckets_into(buckets, out: torch.Tensor) -> None:

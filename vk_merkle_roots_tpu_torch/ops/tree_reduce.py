@@ -38,6 +38,7 @@ from . import sha256_core as core
 
 TAIL_MAX_LOG2 = 10  # the tail kernel's capacity: 1024 digests a block
 MAX_TAIL_BLOCKS = 32  # kMaxTailBlocks of csrc/tail_reduce.cuh; more blocks take more launches
+SOLO_MAX_LOG2 = 7  # kSoloMaxLog2 of csrc/tail_reduce.cuh: a table with a larger block runs in clusters of CTAs
 
 
 class TailEntry(NamedTuple):
@@ -164,10 +165,16 @@ def tail_reduce_blocks(entries) -> torch.Tensor:
         _build.plain_calls["tail_reduce"] += 1
         return tail_reduce_blocks_plain(entries)
     out = torch.empty((len(entries), 8), dtype=torch.int32, device=entries[0].cols.device)
+    _launch_tail(entries, out)
+    return out
+
+
+def _launch_tail(entries, out: torch.Tensor) -> None:
     with torch.cuda.device(out.device):
         for table in tail_tables(entries, out):
-            _build.launch("tail_reduce", "vkmr_tail_reduce", ctypes.addressof(table), _build.stream_of(out))
-    return out
+            # A table's largest block comes first.
+            _build.launch("tail_reduce", "vkmr_tail_reduce", ctypes.addressof(table), _build.stream_of(out),
+                          entries=table.n, cluster=table.b[0].log2n > SOLO_MAX_LOG2)
 
 
 def tail_reduce(x: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,11 @@ import hashlib
 from typing import Iterable, Sequence
 
 
+def sha256(data: bytes) -> bytes:
+    """Single SHA-256."""
+    return hashlib.sha256(data).digest()
+
+
 def sha256d(data: bytes) -> bytes:
     """Double SHA-256 (Bitcoin-style)."""
     return hashlib.sha256(hashlib.sha256(data).digest()).digest()
@@ -119,6 +124,11 @@ def verify_proof(leaf_digest: bytes, path: Sequence[tuple[bytes, str]]) -> bytes
     for sibling, side in path:
         cur = node_hash(cur, sibling) if side == "R" else node_hash(sibling, cur)
     return cur
+
+
+def merkle_proof(leaves: Sequence[bytes], index: int) -> list[tuple[bytes, str]]:
+    """Authentication path for raw leaf ``index`` of the whole-stream tree."""
+    return merkle_proof_of_digests([leaf_hash(x) for x in leaves], index)
 
 
 def merkle_root_sliced(leaves: Sequence[bytes], slice_log2: int) -> bytes:

@@ -58,6 +58,11 @@ class Bucket:
     count: int
     counts: np.ndarray | None = None  # (count,) int32 real block counts
 
+    def leaf_words(self, i: int) -> np.ndarray:
+        """(nblocks*16,) big-endian words of leaf ``i`` — test/debug view."""
+        return np.asarray(self.words[i // TILE, :, (i % TILE) // TILE_LANE, i % TILE_LANE])
+
+
 @dataclass
 class PackedLeaves:
     """Bucketed, padded, word-packed leaves plus the restore permutation."""

@@ -1,7 +1,7 @@
 """Power-of-two / bit-permutation helpers.
 
 Equivalent role to the reference's math utilities (``Utils.h:19-73``:
-``is_pow2``), plus the bit-reversal machinery that the device reduction
+``is_pow2``, ``largest_pow2_le``), plus the bit-reversal machinery that the device reduction
 layout is built on (the reference has no analog: its adjacent-pair reduction
 indexes with strides inside the shader, SHA-256.comp:395, whereas we store
 digests in bit-reversed leaf order so every tree level is an elementwise
@@ -16,6 +16,12 @@ import numpy as np
 
 def is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
+
+
+def largest_pow2_le(n: int) -> int:
+    if n < 1:
+        raise ValueError("need n >= 1")
+    return 1 << (n.bit_length() - 1)
 
 
 def ceil_log2(n: int) -> int:

@@ -14,6 +14,10 @@ import logging
 _LOGGER = logging.getLogger("vkmr_tpu")
 
 
+def get_logger() -> logging.Logger:
+    return _LOGGER
+
+
 def enable_verbose(level: int = logging.DEBUG) -> None:
     handler = logging.StreamHandler()
     handler.setFormatter(
