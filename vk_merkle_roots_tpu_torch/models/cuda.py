@@ -10,7 +10,8 @@ What carries over, with the same semantics:
 * ``Add`` / ``AddMany`` / ``AddSpans`` ingest into a FIFO of spans;
 * the pack-ahead pipeline: ``_submit_packs`` pops pending leaves and hands
   them to a packing thread against *planned* slice state, ``_dispatch_job``
-  consumes packed batches strictly in order, so plan and reality agree;
+  consumes packed batches strictly in order, so plan and reality agree (a
+  drain with nothing queued packs on the caller's thread);
 * group-bitrev slices: a flush of exactly one aligned power-of-two batch is
   packed in bit-reversed order, so the full slice reduces with no device
   permutation (``ops.tree_reduce.reduce_grouped_body``);
@@ -61,7 +62,7 @@ from ..ops.tree_reduce import (
     reduce_perfect_block,
     slice_root,
 )
-from ..packing import pack_spans
+from ..packing import pack_flush, pack_spans
 from ..utils.bitmath import bit_reverse_indices, is_pow2
 from ..utils.hexutil import words_to_digest
 from ..utils.log import event
@@ -415,9 +416,19 @@ class CudaSha256D(Sha256dEngine):
         self._fill += n
 
     def _pack_worker(self, chunks, group_flush: bool):
-        """Pack one flush batch into the wire format (on the pack thread).
-        Touches only the chunks, the config and the bit-reversal table."""
+        """Pack one flush batch into the wire format (on the pack thread, or
+        on the caller's when it would wait on the pack at once).  Touches only
+        the chunks, the config and the bit-reversal table.
+
+        A flush whose leaves all fit the exact buckets is one native pass
+        (:func:`..packing.pack_flush`: no interpreter lock, no OpenMP team,
+        one packed unit for all its chunks); any other goes through
+        ``merge_chunks`` and ``pack_spans``.  Returns the packed units with
+        their payload bytes, the pack's ms, and whether the pass took it."""
         sw = StopWatch()
+        packed = pack_flush(chunks, self._rev_group if group_flush else None, self.config.device_max_blocks)
+        if packed is not None:
+            return [(packed, packed.total_bytes)], sw.Elapsed(), True
         if group_flush:
             data, offs, lens = merge_chunks(chunks)
             perm = self._rev_group
@@ -427,7 +438,7 @@ class CudaSha256D(Sha256dEngine):
                 (pack_spans(data, offs, lens, self.config.device_max_blocks), int(lens.sum()))
                 for data, offs, lens in chunks
             ]
-        return work, sw.Elapsed()
+        return work, sw.Elapsed(), False
 
     def _submit_packs(self, drain: bool = False) -> bool:
         """Producer half: pop pending leaves and hand them to the pack
@@ -461,7 +472,10 @@ class CudaSha256D(Sha256dEngine):
             if self._plan_fill == self._cap:
                 self._plan_fill = 0
                 self._plan_grouped = None
-            if self.config.pack_ahead > 0:
+            # A drain with nothing queued blocks on this pack at once: it runs
+            # on the caller's thread, with no hand-off to the pack thread and
+            # back (a Root() of a short stream packs no other way).
+            if self.config.pack_ahead > 0 and (self._pack_jobs or not drain):
                 if self._executor is None:
                     from concurrent.futures import ThreadPoolExecutor
 
@@ -520,7 +534,7 @@ class CudaSha256D(Sha256dEngine):
             self._slice_grouped = group_flush
         try:
             with self.times.span("pack_wait"):  # also when the pack is done: one a flush
-                work, t_pack = job.future.result()
+                work, t_pack, one_pass = job.future.result()
         except BaseException:
             # Whatever the pack thread raised, its leaves and every queued
             # job's return to the pending head before the error propagates.
@@ -530,6 +544,8 @@ class CudaSha256D(Sha256dEngine):
             raise
         self._inflight_nbytes -= job.nbytes
         self.times.add("pack", t_pack, job.nbytes, throughput=True)
+        if one_pass:
+            self.times.add("pack_one_pass", t_pack, job.nbytes, throughput=True)
         done = 0
         try:
             for packed, nbytes in work:

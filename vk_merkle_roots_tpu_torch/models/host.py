@@ -75,8 +75,9 @@ class PackJob:
 
 
 class InlinePack:
-    """Future shim for ``pack_ahead=0``: runs the pack on the caller's
-    thread when its result is asked for."""
+    """Future shim for ``pack_ahead=0``, and for a drain with nothing
+    queued: runs the pack on the caller's thread when its result is asked
+    for."""
 
     __slots__ = ("_fn", "_args")
 

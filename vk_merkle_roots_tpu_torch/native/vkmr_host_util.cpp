@@ -6,6 +6,8 @@
 //     leaves (role of Batch packing,
 //     Batches.cpp:64-121, and the in-shader padding, SHA-256.comp:207-285 —
 //     done host-side here by design)
+//   * the engine's flush pass: a flush of exact-bucket leaves bucketed,
+//     bit-reversed and packed in one call on one thread
 //   * a glibc-compatible rand() stream generator (role of rndm, Rndm.cpp)
 
 #include <cstdint>
@@ -152,71 +154,90 @@ void zero_row_tail(uint32_t* out, int64_t words_per, int64_t n,
                 size_t((total_tiles - tile) * words_per * 4096));
 }
 
-// Shared driver for both packers: pad leaves 16 at a time into contiguous
-// scratch rows, then transpose each group into the tile-major output.
-// Groups are 16-lane-aligned so they never straddle a tile (16 | 1024).
-// `exact` buckets place the length footer at the full row pitch; stream
-// buckets at each leaf's real padded boundary.  Partial tail groups zero
-// their unused scratch rows, so rows past n are written as zeros (the
-// caller may hand in uninitialized memory as long as row slack beyond
-// ceil(n/16)*16 is already zero — np.zeros today).
+// Pad leaves r0 .. r0+15 (fewer at the end of the bucket) into contiguous
+// scratch rows, then transpose the group into the tile-major output.  Groups
+// are 16-lane-aligned so they never straddle a tile (16 | 1024).  `src(i)`
+// is leaf i's first byte.  `exact` buckets place the length footer at the
+// full row pitch; stream buckets at each leaf's real padded boundary.  A
+// partial tail group zeroes its unused scratch rows, so its rows past n are
+// written as zeros.  `len(i)` is leaf i's length.
+template <class Src, class Len>
+inline void pack_group16(const Src& src, const Len& len, int64_t n, int64_t r0,
+                         int64_t words_per, bool exact, uint32_t* out,
+                         uint8_t* scratch, uint32_t* stage) {
+  const int64_t pitch_bytes = words_per * 4;
+  const int cnt = int(n - r0 < 16 ? n - r0 : 16);
+#if defined(__SSE2__) || defined(_M_X64)
+  // The engine packs batches in bit-reversed leaf order, so offsets
+  // arrive permuted and each row's source is a random ~100 B read over
+  // the whole batch — DRAM-latency-bound (measured 2.3x slower than
+  // sequential).  Prefetch the NEXT group's sources while padding this
+  // one; the pattern is fully known from the offset array.
+  if (r0 + 16 < n) {
+    const int pn = int(n - r0 - 16 < 16 ? n - r0 - 16 : 16);
+    for (int j = 0; j < pn; ++j) {
+      const uint8_t* p = src(r0 + 16 + j);
+      const int64_t l = len(r0 + 16 + j);
+      // Cap per-row prefetch: long (stream-bucket) leaves read fine
+      // with the hardware prefetcher; it is the SHORT permuted rows
+      // whose latency needs hiding.
+      const int64_t pf = l < 512 ? l : 512;
+      for (int64_t o = 0; o < pf; o += 64)
+        _mm_prefetch(reinterpret_cast<const char*>(p + o), _MM_HINT_T0);
+      _mm_prefetch(reinterpret_cast<const char*>(p + l - 1), _MM_HINT_T0);
+    }
+  }
+#endif
+  // Stream rows shorter than the rung capacity keep their calloc-zero
+  // word planes past the group's longest real row — when the caller
+  // sorts the bucket by block count, groups are near-homogeneous and
+  // the zero tail of the rung is never touched at all.
+  int64_t group_w = exact ? words_per : 0;
+  for (int j = 0; j < cnt; ++j) {
+    const int64_t l = len(r0 + j);
+    const int64_t end = exact ? pitch_bytes : ((l + 9 + 63) / 64) * 64;
+    if (!exact && end / 4 > group_w) group_w = end / 4;
+    pad_row(scratch + j * pitch_bytes, src(r0 + j), l, end, pitch_bytes);
+  }
+  if (cnt < 16)
+    std::memset(scratch + cnt * pitch_bytes, 0,
+                size_t((16 - cnt) * pitch_bytes));
+  uint32_t* base = out + (r0 >> 10) * words_per * 1024 + (r0 & 1023);
+  transpose_group16(scratch, pitch_bytes, group_w, words_per, base, stage);
+}
+
+// Per-thread packing scratch: 16 padded rows and the 64-byte-aligned
+// (words_per, 16) u32 stage of the two-phase store.
+struct PackScratch {
+  std::vector<uint8_t> rows;
+  std::vector<uint32_t> stagebuf;
+  uint32_t* stage = nullptr;
+  void fit(int64_t words_per) {
+    if (rows.size() < size_t(64 * words_per)) rows.resize(size_t(64 * words_per));
+    if (stagebuf.size() < size_t(words_per * 16 + 16))
+      stagebuf.resize(size_t(words_per * 16 + 16));
+    stage = reinterpret_cast<uint32_t*>(
+        (reinterpret_cast<uintptr_t>(stagebuf.data()) + 63) & ~uintptr_t(63));
+  }
+};
+
+// The loop both bucket packers share, over an OpenMP team: groups of 16
+// leaves (pack_group16), then the rows of the last tile past the last group
+// are zeroed (zero_row_tail), so the caller may hand in uninitialized memory.
 void pack_tiles_grouped(const uint8_t* data, const int64_t* offsets,
                         const int64_t* lengths, int64_t n, int64_t words_per,
                         bool exact, uint32_t* out, int64_t total_rows) {
-  const int64_t pitch_bytes = words_per * 4;
   const int64_t ngroups = (n + 15) / 16;
+  const auto src = [&](int64_t i) { return data + offsets[i]; };
+  const auto len = [&](int64_t i) { return lengths[i]; };
 #pragma omp parallel
   {
-    std::vector<uint8_t> scratch(size_t(16 * pitch_bytes));
-    // 64-byte-aligned (words_per, 16) u32 stage for the two-phase store.
-    std::vector<uint32_t> stagebuf(size_t(words_per * 16) + 16);
-    uint32_t* stage = reinterpret_cast<uint32_t*>(
-        (reinterpret_cast<uintptr_t>(stagebuf.data()) + 63) & ~uintptr_t(63));
+    PackScratch s;
+    s.fit(words_per);
 #pragma omp for schedule(dynamic, 8)
-    for (int64_t g = 0; g < ngroups; ++g) {
-      const int64_t r0 = g * 16;
-      const int cnt = int(n - r0 < 16 ? n - r0 : 16);
-#if defined(__SSE2__) || defined(_M_X64)
-      // The engine packs batches in bit-reversed leaf order, so offsets
-      // arrive permuted and each row's source is a random ~100 B read over
-      // the whole batch — DRAM-latency-bound (measured 2.3x slower than
-      // sequential).  Prefetch the NEXT group's sources while padding this
-      // one; the pattern is fully known from the offset array.
-      if (r0 + 16 < n) {
-        const int pn = int(n - r0 - 16 < 16 ? n - r0 - 16 : 16);
-        for (int j = 0; j < pn; ++j) {
-          const uint8_t* src = data + offsets[r0 + 16 + j];
-          const int64_t len = lengths[r0 + 16 + j];
-          // Cap per-row prefetch: long (stream-bucket) leaves read fine
-          // with the hardware prefetcher; it is the SHORT permuted rows
-          // whose latency needs hiding.
-          const int64_t pf = len < 512 ? len : 512;
-          for (int64_t o = 0; o < pf; o += 64)
-            _mm_prefetch(reinterpret_cast<const char*>(src + o), _MM_HINT_T0);
-          _mm_prefetch(reinterpret_cast<const char*>(src + len - 1), _MM_HINT_T0);
-        }
-      }
-#endif
-      // Stream rows shorter than the rung capacity keep their calloc-zero
-      // word planes past the group's longest real row — when the caller
-      // sorts the bucket by block count, groups are near-homogeneous and
-      // the zero tail of the rung is never touched at all.
-      int64_t group_w = exact ? words_per : 0;
-      for (int j = 0; j < cnt; ++j) {
-        const int64_t len = lengths[r0 + j];
-        const int64_t end =
-            exact ? pitch_bytes : ((len + 9 + 63) / 64) * 64;
-        if (!exact && end / 4 > group_w) group_w = end / 4;
-        pad_row(scratch.data() + j * pitch_bytes, data + offsets[r0 + j], len,
-                end, pitch_bytes);
-      }
-      if (cnt < 16)
-        std::memset(scratch.data() + cnt * pitch_bytes, 0,
-                    size_t((16 - cnt) * pitch_bytes));
-      uint32_t* base = out + (r0 >> 10) * words_per * 1024 + (r0 & 1023);
-      transpose_group16(scratch.data(), pitch_bytes, group_w, words_per, base,
-                        stage);
-    }
+    for (int64_t g = 0; g < ngroups; ++g)
+      pack_group16(src, len, n, g * 16, words_per, exact, out, s.rows.data(),
+                   s.stage);
 #pragma omp single nowait
     zero_row_tail(out, words_per, ((n + 15) / 16) * 16, total_rows);
 #if defined(__AVX2__)
@@ -229,6 +250,18 @@ void pack_tiles_grouped(const uint8_t* data, const int64_t* offsets,
 #endif
   }
 }
+
+// The flush pass's working arrays, kept per thread between calls so that a
+// steady stream of flushes allocates nothing.
+struct Span {
+  const uint8_t* p;
+  int64_t len;
+};
+struct FlushScratch {
+  std::vector<Span> leaf;  // natural leaf j where its chunk holds it
+  std::vector<Span> row;  // the leaf of bucket-concat row r
+  PackScratch pack;
+};
 
 }  // namespace
 
@@ -263,6 +296,99 @@ void vkmr_pack_stream_bucket_tiles(const uint8_t* data, const int64_t* offsets,
                                    int64_t total_rows) {
   pack_tiles_grouped(data, offsets, lengths, n, int64_t(cap_blocks) * 16,
                      /*exact=*/false, out, total_rows);
+}
+
+// The engine's flush pass: a whole flush of exact-bucket leaves, packed in
+// one call on the calling thread, with no OpenMP team.  The flush is read
+// where it lies: chunk c holds chunk_n[c] leaves, spans (chunk_offs[c][k],
+// chunk_lens[c][k]) over the chunk_size[c] bytes at chunk_data[c]; the
+// chunks' leaves in turn are the natural leaves 0..n-1, and leaf i of the
+// flush is natural leaf perm[i] (i itself when perm is null).  The leaves
+// are counting-sorted, stably, by padded block count into the exact buckets
+// 1..8: order[r] is the flush leaf in bucket-concat row r and inverse[i] the
+// row of flush leaf i, as packing.pack_spans gives them.  Bucket b goes to
+// out at word bucket_word[b-1], bucket_rows[b-1] leaves in
+// ceil(rows/1024) tiles of the wire format of vkmr_pack_bucket_tiles, rows
+// past the last leaf zero, the buckets back to back in block order.
+// Returns 0, with the payload bytes in *total_bytes; 1, with nothing
+// written to out, when a leaf needs more than min(max_blocks, 8) blocks, a
+// span lies outside its chunk or perm[i] outside [0, n) (the caller's
+// general packer takes such a flush); -1 when the buckets need more than
+// out_words.
+int32_t vkmr_pack_flush(int32_t nchunks, const uint8_t* const* chunk_data,
+                        const int64_t* chunk_size,
+                        const int64_t* const* chunk_offs,
+                        const int64_t* const* chunk_lens,
+                        const int64_t* chunk_n, const int64_t* perm,
+                        int32_t max_blocks, uint32_t* out, int64_t out_words,
+                        int64_t* order, int64_t* inverse, int64_t* bucket_rows,
+                        int64_t* bucket_word, int64_t* total_bytes) {
+  constexpr int kMaxBlocks = 8;  // packing.UNROLL_MAX_BLOCKS
+  const int64_t max_len =
+      int64_t(max_blocks < kMaxBlocks ? max_blocks : kMaxBlocks) * 64 - 9;
+  thread_local FlushScratch s;
+  int64_t n = 0;
+  for (int32_t c = 0; c < nchunks; ++c) n += chunk_n[c];
+  s.leaf.resize(size_t(n));
+  s.row.resize(size_t(n));
+
+  // The histogram of block counts does not depend on the order, so it is
+  // taken here, in chunk order; then one pass in flush order places each
+  // leaf (a single random read of its span where perm scatters).
+  int64_t hist[kMaxBlocks + 1] = {0};
+  int64_t total = 0, j = 0;
+  for (int32_t c = 0; c < nchunks; ++c) {
+    const int64_t* offs = chunk_offs[c];
+    const int64_t* lens = chunk_lens[c];
+    for (int64_t k = 0; k < chunk_n[c]; ++k, ++j) {
+      const int64_t off = offs[k], len = lens[k];
+      if (len < 0 || len > max_len || off < 0 || off > chunk_size[c] - len)
+        return 1;
+      s.leaf[size_t(j)] = Span{chunk_data[c] + off, len};
+      ++hist[(len + 9 + 63) / 64];
+      total += len;
+    }
+  }
+  int64_t next[kMaxBlocks + 1];
+  int64_t words = 0;
+  for (int b = 1, row = 0; b <= kMaxBlocks; ++b) {
+    next[b] = row;
+    row += hist[b];
+    bucket_rows[b - 1] = hist[b];
+    bucket_word[b - 1] = words;
+    words += (hist[b] + 1023) / 1024 * 1024 * 16 * b;
+  }
+  if (words > out_words) return -1;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t src = perm ? perm[i] : i;
+    if (src < 0 || src >= n) return 1;
+    const Span leaf = s.leaf[size_t(src)];
+    const int64_t r = next[(leaf.len + 9 + 63) / 64]++;
+    order[r] = i;
+    inverse[i] = r;
+    s.row[size_t(r)] = leaf;
+  }
+
+  for (int b = 1, row = 0; b <= kMaxBlocks; row += hist[b], ++b) {
+    const int64_t count = hist[b];
+    if (count == 0) continue;
+    const int64_t words_per = int64_t(b) * 16;
+    uint32_t* dst = out + bucket_word[b - 1];
+    const Span* rows = s.row.data() + row;
+    s.pack.fit(words_per);
+    for (int64_t r0 = 0; r0 < count; r0 += 16)
+      pack_group16([&](int64_t i) { return rows[i].p; },
+                   [&](int64_t i) { return rows[i].len; }, count, r0,
+                   words_per, /*exact=*/true, dst, s.pack.rows.data(),
+                   s.pack.stage);
+    zero_row_tail(dst, words_per, (count + 15) / 16 * 16,
+                  (count + 1023) / 1024 * 1024);
+  }
+#if defined(__AVX2__)
+  _mm_sfence();  // the NT stores are complete before the caller reads out
+#endif
+  *total_bytes = total;
+  return 0;
 }
 
 // glibc-compatible TYPE_3 additive-feedback rand(), reimplemented from the

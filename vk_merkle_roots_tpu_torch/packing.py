@@ -33,7 +33,10 @@ from .constants import (
 def quantized_tiles(n: int) -> int:
     """Tile count for ``n`` leaves, padded to a power of two so compiled
     kernels are shared across batches instead of recompiling per exact
-    count (rows past ``n`` are zero and their digests are never gathered)."""
+    count (rows past ``n`` are zero and their digests are never gathered).
+    The JAX package's rule, kept by :func:`pack_spans`; the CUDA kernels take
+    any tile count, and the engine's flush pass (:func:`pack_flush`) packs
+    ``ceil(n / 1024)`` tiles."""
     t = -(-n // TILE)
     return 1 << (t - 1).bit_length() if t > 1 else 1
 
@@ -278,6 +281,33 @@ def pack_spans(
     return PackedLeaves(
         buckets, order, inverse_order, count, int(lengths.sum()), host_spans
     )
+
+
+def pack_flush(chunks, perm: np.ndarray | None, max_device_blocks: int | None = None) -> PackedLeaves | None:
+    """The engine's flush pass: ``pack_spans`` of the flush's chunks joined
+    and gathered through ``perm`` (``merge_chunks`` then ``offsets[perm]``,
+    ``lengths[perm]``; chunk order when ``perm`` is None), as one native call
+    that reads each leaf where it lies.  The same buckets, ``order`` and
+    ``inverse_order``, but each bucket is ``ceil(count / 1024)`` tiles, not
+    :func:`quantized_tiles`, all in one allocation.  None, for the caller's
+    general path, when the library is not loaded or a leaf needs more than
+    ``UNROLL_MAX_BLOCKS`` or ``max_device_blocks`` blocks."""
+    from .native.lib import native_pack_flush
+
+    got = native_pack_flush(chunks, perm, UNROLL_MAX_BLOCKS if max_device_blocks is None else max_device_blocks)
+    if got is None:
+        return None
+    words, order, inverse, rows, word_offsets, total = got
+    buckets = []
+    for b in range(1, UNROLL_MAX_BLOCKS + 1):
+        count = int(rows[b - 1])
+        if count:
+            tiles, lo = -(-count // TILE), int(word_offsets[b - 1])
+            bucket = words[lo : lo + tiles * b * 16 * TILE].reshape(tiles, b * 16, TILE_SUB, TILE_LANE)
+            buckets.append(Bucket(b, bucket, count))
+    if len(buckets) == 1:  # one bucket keeps the input order, as pack_spans' fast path says
+        inverse = order
+    return PackedLeaves(buckets, order, inverse, int(order.size), total)
 
 
 def pack_leaves(leaves: list[bytes]) -> PackedLeaves:
