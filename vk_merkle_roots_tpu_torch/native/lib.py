@@ -3,9 +3,10 @@
 The port's copy of ``vk_merkle_roots_tpu/native/lib.py``, with the same
 functions over the same C ABI (``vkmr_native.cpp``, ``vkmr_host_util.cpp``
 beside this file): the SHA-256d leaf hasher (SHA-NI where the CPU has it),
-the host Merkle reduce, the tile-major bucket packers and the ``rndm``
-generator.  :func:`.._build.build_host_library` compiles them with ``g++``
-into ``_build/`` at first use, with OpenMP where libgomp links and without it
+the host Merkle reduce, the tile-major bucket packers, the line split of a
+stream read and the ``rndm`` generator.
+:func:`.._build.build_host_library` compiles them with ``g++`` into
+``_build/`` at first use, with OpenMP where libgomp links and without it
 otherwise.  If no library builds, every entry point returns None and the
 callers take their pure-Python/NumPy paths (correctness never depends on the
 library).
@@ -19,7 +20,7 @@ from functools import lru_cache
 
 import numpy as np
 
-ABI = 6  # vkmr_native_abi() of vkmr_native.cpp
+ABI = 7  # vkmr_native_abi() of vkmr_native.cpp
 
 
 @lru_cache(maxsize=1)
@@ -83,6 +84,8 @@ def _load():
         ctypes.c_int32, vp, vp, vp, vp, vp, vp, ctypes.c_int32, vp, ctypes.c_int64, vp, vp, vp, vp, i64p
     ]
     lib.vkmr_pack_flush.restype = ctypes.c_int32
+    lib.vkmr_split_lines.argtypes = [vp, ctypes.c_int64, ctypes.c_int64, vp, vp, ctypes.c_int64]
+    lib.vkmr_split_lines.restype = ctypes.c_int64
     lib.vkmr_rndm_stream.argtypes = [
         ctypes.c_uint32,
         ctypes.c_int64,
@@ -276,6 +279,30 @@ def native_pack_flush(chunks, perm: np.ndarray | None, max_blocks: int):
     if rc != 0:
         raise RuntimeError(f"vkmr_pack_flush failed: rc={rc}")
     return words, order, inverse, rows, word_offsets, total.value
+
+
+def native_split_lines(data: np.ndarray, n: int, begin: int = 0, expect: int | None = None):
+    """``(starts, lengths)``, int64, of each line of ``data[:n]`` that a
+    newline ends, the newline left out and empty lines kept
+    (``vkmr_split_lines``, with the interpreter lock released); None when the
+    library is not loaded.  ``data`` is C-contiguous uint8 whose first
+    ``begin`` bytes hold no newline: the search starts there, the first line
+    at 0.  Room is made for ``expect`` lines (default ``n // 16 + 1``); a
+    buffer with more is scanned again with room for all."""
+    lib = _load()
+    if lib is None:
+        return None
+    if data.dtype != np.uint8 or data.ndim != 1 or not data.flags.c_contiguous:
+        raise ValueError("the line split takes a C-contiguous 1-D uint8 buffer")
+    if not 0 <= begin <= n <= data.size:
+        raise ValueError(f"begin {begin} and n {n} outside a buffer of {data.size} bytes")
+    cap = n // 16 + 1 if expect is None else max(int(expect), 1)
+    while True:
+        starts, lengths = np.empty(cap, np.int64), np.empty(cap, np.int64)
+        count = lib.vkmr_split_lines(data.ctypes.data, begin, n, starts.ctypes.data, lengths.ctypes.data, cap)
+        if count <= cap:
+            return starts[:count], lengths[:count]
+        cap = count
 
 
 def native_rndm_stream(seed: int, count: int, maxlen: int) -> bytes | None:

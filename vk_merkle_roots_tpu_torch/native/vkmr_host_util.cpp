@@ -8,6 +8,8 @@
 //     done host-side here by design)
 //   * the engine's flush pass: a flush of exact-bucket leaves bucketed,
 //     bit-reversed and packed in one call on one thread
+//   * the line split of a stream read (role of the reference's fgetc reader,
+//     Inputs.cpp:75-101)
 //   * a glibc-compatible rand() stream generator (role of rndm, Rndm.cpp)
 
 #include <cstdint>
@@ -389,6 +391,46 @@ int32_t vkmr_pack_flush(int32_t nchunks, const uint8_t* const* chunk_data,
 #endif
   *total_bytes = total;
   return 0;
+}
+
+// The line split of a stream read (the role of packing.split_lines, for
+// ingest.iter_line_spans): the start and length of each line of data[0, n)
+// that a '\n' ends, the newline left out and empty lines kept, in order,
+// the first `cap` of them written to starts/lengths.  The search begins at
+// `begin`: data[0, begin) is the incomplete line carried from earlier reads
+// and holds no newline, so the first line starts at 0.  Returns the number
+// of complete lines, which exceeds cap when the output was too short (the
+// caller scans again with room for all).  No allocation, no OpenMP.
+int64_t vkmr_split_lines(const uint8_t* data, int64_t begin, int64_t n,
+                         int64_t* starts, int64_t* lengths, int64_t cap) {
+  int64_t count = 0, start = 0, i = begin;
+  auto line = [&](int64_t nl) {
+    if (count < cap) {
+      starts[count] = start;
+      lengths[count] = nl - start;
+    }
+    ++count;
+    start = nl + 1;
+  };
+#if defined(__AVX2__)
+  // 64 bytes a step: one bit a byte that is '\n', taken lowest first.
+  const __m256i nl = _mm256_set1_epi8('\n');
+  for (; i + 64 <= n; i += 64) {
+    const __m256i a = _mm256_loadu_si256(reinterpret_cast<const __m256i*>(data + i));
+    const __m256i b = _mm256_loadu_si256(reinterpret_cast<const __m256i*>(data + i + 32));
+    uint64_t m = uint32_t(_mm256_movemask_epi8(_mm256_cmpeq_epi8(a, nl))) |
+                 uint64_t(uint32_t(_mm256_movemask_epi8(_mm256_cmpeq_epi8(b, nl)))) << 32;
+    for (; m; m &= m - 1) line(i + __builtin_ctzll(m));
+  }
+#endif
+  while (i < n) {
+    const void* hit = std::memchr(data + i, '\n', size_t(n - i));
+    if (!hit) break;
+    const int64_t at = static_cast<const uint8_t*>(hit) - data;
+    line(at);
+    i = at + 1;
+  }
+  return count;
 }
 
 // glibc-compatible TYPE_3 additive-feedback rand(), reimplemented from the

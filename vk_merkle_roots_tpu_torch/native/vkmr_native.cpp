@@ -435,7 +435,7 @@ int vkmr_merkle_root(const uint8_t* digests, int64_t n, int32_t height,
 // ABI/version probe for the ctypes loader.  Bump whenever an exported
 // symbol is added/changed so stale .so files fail the probe and the loader
 // degrades to pure Python instead of raising on a missing symbol.
-int32_t vkmr_native_abi(void) { return 6; }
+int32_t vkmr_native_abi(void) { return 7; }
 
 // 1 if the hardware SHA-256 (SHA-NI) compression is in use, else 0.
 // Set VKMR_FORCE_SCALAR=1 before load to pin the scalar path (used by the
