@@ -15,9 +15,10 @@ Phases, each fatal on failure:
    leaf alone (its chain floor); K3 on a full slice's 16 natural-order group
    roots, on 1024 bit-reversed digests and on the 12345-digest ragged tail
    that stream 1 leaves, block by block and in one launch, in turns, and the
-   ragged tail's whole device part as PR 4 dispatched it (a gather, the K2
-   levels and one K3 launch a block) against one K3 launch; a full grouped
-   slice's reduction must run no gather;
+   ragged tail's whole device part (one K3 launch) with its host enqueue; a
+   full grouped slice's reduction must run no gather; K3 once on each of
+   eight shapes (1 to 1024 bit-reversed digests, 16 natural-order group
+   roots, the ragged tail);
 4. the streaming engine ``CudaSha256D`` at the JAX engine's default size
    (2^20-leaf slices, 2^16-leaf batches) on ``rndm 1712489279 (2^21+12345)
    127`` and on a stream with 1-8 KB leaves mixed in; each root must equal
@@ -482,7 +483,7 @@ def main() -> int:
     from vk_merkle_roots_tpu_torch.ops import perf_probe as pp
     from vk_merkle_roots_tpu_torch.ops import tree_reduce as tr
     from vk_merkle_roots_tpu_torch.packing import pack_spans, split_lines
-    from vk_merkle_roots_tpu_torch.tools import perf_model, tail_variants
+    from vk_merkle_roots_tpu_torch.tools import perf_model
     from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices
     from vk_merkle_roots_tpu_torch.utils.hexutil import words_to_digest
 
@@ -798,9 +799,9 @@ def main() -> int:
     # by K2 beforehand: K3 block by block (the wrapper's one-block table, one
     # launch a block, PR 4's pattern) and every block in one launch, in turns,
     # each turn into an output of its own filled with -1.  Then the tail's
-    # whole device part, PR 4's dispatch (a gather, the K2 levels and one K3
-    # launch a block) against this one's (ragged_entries, one K3 launch), with
-    # the host's enqueue time of each.
+    # whole device part (ragged_entries: the gathers and K2 levels of its
+    # blocks over 1024 digests, then one K3 launch), with the host's enqueue
+    # time.
     def tail_launches(out, per_block: bool):
         tables = ([t for k, e in enumerate(ragged) for t in tr.tail_tables([e], out[k : k + 1])] if per_block
                   else tr.tail_tables(ragged, out))
@@ -822,23 +823,13 @@ def main() -> int:
     print(f"{'tail_reduce':17s} {RAGGED}-digest ragged tail, K3 alone: in turns "
           + ", ".join(f"{k} {t:.4f}" for k, t in tail_turns) + " ms")
 
-    def pr4_tail():
-        """The ragged tail's device part as PR 4 dispatched it."""
-        roots, start = [], 0
-        for k in ragged_heights:
-            block = ragged_dev[:, start : start + (1 << k)]
-            roots.append(block[:, 0].clone() if k == 0 else tr.reduce_words_body(tr.bitrev_fold_words(block, k), k))
-            start += 1 << k
-        return torch.stack(roots)
+    def whole_tail():
+        return tr.tail_reduce_blocks(tr.ragged_entries(ragged_dev, RAGGED)[0])
 
-    whole = {"PR 4 dispatch": pr4_tail, "one K3 launch": lambda: tr.tail_reduce_blocks(tr.ragged_entries(ragged_dev, RAGGED)[0])}
-    whole_turns = []
-    for kind in ("PR 4 dispatch", "one K3 launch", "one K3 launch", "PR 4 dispatch"):
-        (t, host), got = timed_with_host(whole[kind], 10), whole[kind]()
-        whole_turns.append((kind, t, host))
-        check(np.array_equal(u32(got), want_rows), f"ragged tail, {kind}: block roots differ")
-    print(f"{'tail_reduce':17s} {RAGGED}-digest ragged tail's device part (gathers, K2, K3): in turns "
-          + ", ".join(f"{k} {t:.4f} ms on the card, {h:.4f} ms of host enqueue" for k, t, h in whole_turns))
+    (t, host), got = timed_with_host(whole_tail, 10), whole_tail()
+    check(np.array_equal(u32(got), want_rows), "ragged tail, one K3 launch: block roots differ")
+    print(f"{'tail_reduce':17s} {RAGGED}-digest ragged tail's device part (gathers, K2, one K3 launch):"
+          f" {t:.4f} ms on the card, {host:.4f} ms of host enqueue")
 
     # A full grouped slice reduces without a gather: the group levels, then
     # the 16 natural-order group roots straight into K3.
@@ -862,13 +853,22 @@ def main() -> int:
     print(f"reduce_grouped_body, 2^20 digests in 16 groups: {grouped_launches}, no gather; root equals the"
           f" natural-order route's")
 
-    # The shapes of tools/tail_variants.py, once each, against the plain version.
-    for title, entries in tail_variants.shapes(dev).items():
+    # K3 once on each of eight shapes against the plain version: 1 to 1024
+    # bit-reversed digests, a full slice's 16 natural-order group roots and
+    # the ragged tail.
+    shape_rng = np.random.default_rng(SEED)
+
+    def digests(n: int) -> torch.Tensor:
+        return torch.from_numpy(shape_rng.integers(0, 2**32, size=(8, n), dtype=np.uint32).view(np.int32)).to(dev)
+
+    k3_shapes = [[tr.TailEntry(digests(1 << k), k, True)] for k in (0, 1, 4, 7, 8, 10)]
+    k3_shapes += [[tr.TailEntry(digests(16), 4, False)], tr.ragged_entries(digests(RAGGED), RAGGED)[0]]
+    for entries in k3_shapes:
         e = abs_err(u32(tr.tail_reduce_blocks(entries)),
                     u32(tr.tail_reduce_blocks_plain([x._replace(cols=x.cols.cpu()) for x in entries])))
         err["tail_reduce"] = max(err["tail_reduce"], e)
-    print(f"tail_reduce on the {len(tail_variants.shapes(dev))} shapes of tools/tail_variants.py:"
-          f" max |kernel - plain| = {err['tail_reduce']}")
+    print(f"tail_reduce on {len(k3_shapes)} shapes (1 to 1024 bit-reversed digests, 16 natural-order group roots,"
+          f" the {RAGGED}-digest ragged tail): max |kernel - plain| = {err['tail_reduce']}")
     # The plain versions run after every kernel is timed: seconds of small
     # launches leave the SM clock low for a while after them.
     for name, (buckets, exact, n, shape) in flush_shapes.items():

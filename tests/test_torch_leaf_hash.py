@@ -220,20 +220,3 @@ def test_bucket_wrappers_reject_bad_tables():
     with pytest.raises(ValueError, match="block counts"):
         lh.stream_hash_buckets_into([stream[0]._replace(counts=bad)], out)
 
-
-def test_variant_kernels_take_the_shipped_table():
-    """tools/leaf_variants.cu launches from lh.launch_tables: its LeafBucket
-    and LeafTable must declare the fields of csrc/leaf_hash.cu's, in order."""
-    import re
-    from pathlib import Path
-
-    pkg = Path(lh.__file__).resolve().parent.parent
-
-    def structs(path):
-        text = re.sub(r"//[^\n]*", "", path.read_text())
-        return {name: " ".join(body.split()) for name, body in re.findall(r"struct (\w+) \{(.*?)\};", text, re.S)}
-
-    shipped, variants = structs(pkg / "csrc" / "leaf_hash.cu"), structs(pkg / "tools" / "leaf_variants.cu")
-    assert {"LeafBucket", "LeafTable"} <= set(shipped)
-    for name in ("LeafBucket", "LeafTable"):
-        assert variants[name] == shipped[name]

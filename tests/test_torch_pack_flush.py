@@ -1,7 +1,8 @@
-"""The engine's flush pass (``packing.pack_flush``, one native call a flush)
-against the general path it replaces (``merge_chunks`` then ``pack_spans``),
-its fallback to that path, the ``pack_one_pass`` stage, and the TORCH
-engine's roots through it against the oracle."""
+"""The engine's packing of a flush (``packing.pack_flush``): its native pass
+(one call a flush) against the general path (``merge_chunks`` then
+``pack_spans``), its fallback to that path as one packed unit a flush, the
+``pack_one_pass`` stage, and the TORCH engine's roots through both against
+the oracle."""
 
 import os
 import subprocess
@@ -16,9 +17,9 @@ from vk_merkle_roots_tpu_torch import oracle
 from vk_merkle_roots_tpu_torch.config import EngineConfig
 from vk_merkle_roots_tpu_torch.constants import TILE
 from vk_merkle_roots_tpu_torch.models.cuda import CudaSha256D
-from vk_merkle_roots_tpu_torch.models.host import merge_chunks
-from vk_merkle_roots_tpu_torch.native.lib import native_available, native_rndm_stream
-from vk_merkle_roots_tpu_torch.packing import pack_flush, pack_spans, split_lines
+from vk_merkle_roots_tpu_torch.native import lib as native
+from vk_merkle_roots_tpu_torch.native.lib import native_available, native_pack_flush, native_rndm_stream
+from vk_merkle_roots_tpu_torch.packing import merge_chunks, pack_flush, pack_spans, split_lines
 from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices
 
 torch.set_num_threads(1)
@@ -101,8 +102,8 @@ def test_pass_equals_merge_and_pack_spans(make, bitrev):
     n = sum(len(lens) for _, _, lens in chunks)
     perm = bit_reverse_indices(n.bit_length() - 1) if bitrev else None
     assert not bitrev or n == 1 << (n.bit_length() - 1)
-    got, want = pack_flush(chunks, perm, 2048), _general(chunks, perm)
-    assert got is not None
+    (got, one_pass), want = pack_flush(chunks, perm, 2048), _general(chunks, perm)
+    assert one_pass
     assert (got.count, got.total_bytes, got.host_spans) == (want.count, want.total_bytes, None)
     assert np.array_equal(got.order, want.order) and np.array_equal(got.inverse_order, want.inverse_order)
     assert [(b.nblocks, b.count, b.counts) for b in got.buckets] == [(b.nblocks, b.count, None) for b in want.buckets]
@@ -116,7 +117,7 @@ def test_pass_equals_merge_and_pack_spans(make, bitrev):
 
 def test_buckets_share_one_allocation_and_zero_their_last_tile():
     chunks = _chunked(_edges(2500), 3)
-    got = pack_flush(chunks, None, 2048)
+    got, _ = pack_flush(chunks, None, 2048)
     assert len(got.buckets) == 4 and len({id(b.words.base) for b in got.buckets}) == 1
     for b in got.buckets:
         last = b.words[-1].reshape(b.nblocks * 16, TILE)
@@ -131,17 +132,25 @@ def test_buckets_share_one_allocation_and_zero_their_last_tile():
     ((10, 20), 0),
 ])
 def test_pass_declines_what_the_exact_buckets_do_not_hold(lens, max_blocks):
+    """The pass declines the flush, which is then the general path's one
+    packed unit."""
     lens = np.array(lens, np.int64)
     data = np.ones(int(lens.sum()), np.uint8)
     offs = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
-    assert pack_flush([(data, offs, lens)], None, max_blocks) is None
-    assert pack_flush([(data, offs[:1], lens[:1]), (data, offs[1:], lens[1:])], None, max_blocks) is None
+    for chunks in ([(data, offs, lens)], [(data, offs[:1], lens[:1]), (data, offs[1:], lens[1:])]):
+        assert native_pack_flush(chunks, None, max_blocks) is None
+        got, one_pass = pack_flush(chunks, None, max_blocks)
+        want = pack_spans(data, offs, lens, max_blocks)
+        assert not one_pass
+        assert np.array_equal(got.order, want.order) and np.array_equal(got.inverse_order, want.inverse_order)
+        assert [(b.nblocks, b.count) for b in got.buckets] == [(b.nblocks, b.count) for b in want.buckets]
+        assert all(np.array_equal(g.words, w.words) for g, w in zip(got.buckets, want.buckets))
 
 
 @pytest.mark.parametrize("offs,lens", [((0, 90), (10, 20)), ((-1, 0), (10, 20)), ((0, 5), (10, -3))])
 def test_pass_declines_spans_outside_their_chunk(offs, lens):
     data = np.ones(100, np.uint8)
-    assert pack_flush([(data, np.array(offs, np.int64), np.array(lens, np.int64))], None, 2048) is None
+    assert native_pack_flush([(data, np.array(offs, np.int64), np.array(lens, np.int64))], None, 2048) is None
 
 
 def test_pass_rejects_a_permutation_of_another_size():
@@ -199,6 +208,34 @@ def test_long_leaves_take_the_general_path_and_stay_exact(kw, lens):
     assert e.Root() == oracle.merkle_root_sliced(leaves, 4).hex()
     stages = e.Stats()["stages"]
     assert (stages["pack"]["count"], stages["pack_one_pass"]["count"]) == (4, 3)
+
+
+# (id, engine settings, long leaf lengths, native library loaded)
+DECLINED = [
+    ("stream-rung", {}, (520, 1100), True),  # 9+ blocks
+    ("host-hashed", {"device_max_blocks": 2}, (121, 126), True),  # 3 blocks
+    ("stream-rung-no-library", {}, (520, 1100), False),
+    ("host-hashed-no-library", {"device_max_blocks": 2}, (121, 126), False),
+]
+
+
+@pytest.mark.parametrize("kw,lens,library", [c[1:] for c in DECLINED], ids=[c[0] for c in DECLINED])
+def test_a_declined_flush_of_several_chunks_is_one_packed_unit(monkeypatch, kw, lens, library):
+    """A flush the pass declines (a long leaf, or no native library) packs
+    and dispatches as one unit, however many chunks it spans: 12-leaf
+    batches are not grouped, and chunks of 5 put each 12-leaf flush over
+    three chunks."""
+    if not library:
+        monkeypatch.setattr(native, "_load", lambda: None)
+    leaves = _leaves(sum(lens) + library, 40, 1, 110)
+    leaves[6] = _leaves(lens[0], 1, *lens)[0]  # in the second chunk of the first flush
+    e = _engine(batch_leaves=12, **kw)
+    _add_in_chunks(e, leaves, 5)
+    assert e.Root() == oracle.merkle_root_sliced(leaves, 4).hex()
+    stages = e.Stats()["stages"]
+    flushes = 5  # 12 + 4 leaves a 16-leaf slice, twice, then 8 at Root()
+    assert stages["map_dispatch"]["count"] == stages["pack"]["count"] == flushes
+    assert stages.get("pack_one_pass", {"count": 0})["count"] == (flushes - 1 if library else 0)
 
 
 def test_pack_one_pass_counts_every_flush_of_short_leaves_and_none_of_long():
@@ -282,7 +319,7 @@ def test_the_pass_starts_no_thread():
         "threads = lambda: len(os.listdir('/proc/self/task'))\n"
         "before = threads()\n"
         "for _ in range(3):\n"
-        "    assert pack_flush([(d, o, l)], bit_reverse_indices(16), 2048) is not None\n"
+        "    assert pack_flush([(d, o, l)], bit_reverse_indices(16), 2048)[1]\n"
         "after = threads()\n"
         "lib.native_pack_bucket_tiles(d, o, l, 2, 64)\n"
         "print(before, after, threads(), lib._load()._name.endswith('_omp.so'))\n"

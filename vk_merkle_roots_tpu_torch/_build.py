@@ -106,54 +106,24 @@ def library_path() -> Path:
     return _BUILD / f"libvkmr_cuda_{h.hexdigest()[:16]}.so"
 
 
-def _nvcc(target: Path, sources, flags) -> str:
-    """Compile ``sources`` into the shared library ``target`` with ``nvcc``
-    and ptxas's report; returns the compiler's output, raises if it fails."""
+def _compile(target: Path) -> None:
+    """Compile ``csrc/*.cu`` into the shared library ``target`` with
+    ``nvcc``, keeping the compiler's output, ptxas's report included, in
+    :data:`build_log`; raises if it fails."""
+    global build_seconds, build_log
+    t0 = time.perf_counter()
     _BUILD.mkdir(exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=target.stem + ".", suffix=".so.tmp", dir=_BUILD)
     os.close(fd)
-    cmd = [cuda_tool("nvcc"), *flags, "-Xptxas", "-v", "-o", tmp, *[str(s) for s in sources]]
+    cmd = [cuda_tool("nvcc"), *nvcc_flags(), "-Xptxas", "-v", "-o", tmp, *map(str, sorted(_CSRC.glob("*.cu")))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-    return log
-
-
-def _compile(target: Path) -> None:
-    global build_seconds, build_log
-    t0 = time.perf_counter()
-    build_log = _nvcc(target, sorted(_CSRC.glob("*.cu")), nvcc_flags())
+    build_log = log
     build_seconds = time.perf_counter() - t0
-
-
-def build_tool_library(source: Path, defines: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
-    """The CUDA library of a measurement tool (``tools/*.cu``, which include
-    headers of ``csrc/``) with the given ``-D`` flags, compiled into
-    ``_build/`` first if no library of the current sources and flags exists,
-    and the compiler's output (empty when it was already built)."""
-    flags = NVCC_FLAGS + list(defines)
-    h = hashlib.sha256()
-    for src in (source, *sorted(_CSRC.glob("*.cuh"))):
-        h.update(src.read_bytes())
-    h.update(" ".join(flags).encode())
-    target = _BUILD / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
-    log = "" if target.exists() else _nvcc(target, [source], flags)
-    return ctypes.CDLL(str(target)), log
-
-
-def ptxas_usage(log: str) -> dict[str, str]:
-    """Each kernel's ``ptxas -v`` line (registers, shared memory, spills) in
-    an ``nvcc`` output, by mangled name."""
-    usage, kernel = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1]
-        elif "Used" in line and kernel:
-            usage[kernel] = line.split(":", 1)[1].strip()
-    return usage
 
 
 def load() -> ctypes.CDLL:

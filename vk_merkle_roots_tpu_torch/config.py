@@ -4,7 +4,7 @@
 ``vk_merkle_roots_tpu/config.py`` (:15 and :114), with the same fields and
 defaults, less the two that only the JAX engine reads (``backend``, the
 Pallas/XLA switch, and ``stats_sample_every``, its sampled device timing:
-the port times every flush with CUDA events).  ``auto_slice_log2`` asks
+the port's device time comes from the profiler's trace).  ``auto_slice_log2`` asks
 ``torch.cuda`` for free device memory.  The kernels need no
 compilation-cache setting: ``_build`` keeps the built library by content
 hash."""

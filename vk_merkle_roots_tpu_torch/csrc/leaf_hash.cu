@@ -31,8 +31,8 @@
 // in flight while block b compresses, which takes the load latency off the
 // round chain: in the exact kernel as loads into a second register buffer
 // (ping-pong), in the stream kernel as cp.async copies into a second
-// shared-memory buffer, which tools/leaf_variants.py measured 23-27% faster
-// than the registers on a long-leaf flush (PERF.md).  Digests are stored
+// shared-memory buffer, measured 23-27% faster than the registers on a
+// long-leaf flush (PERF.md, PR 4).  Digests are stored
 // word-major into an (8, ld) output at each bucket's first column, so the
 // engine hashes straight into its slice buffer.  A stream leaf loops over its
 // own real block count only.

@@ -3,8 +3,7 @@
 //
 // Replaces the Pallas _tail_kernel of vk_merkle_roots_tpu/ops/tree_reduce.py
 // (:157, launched by _tail_reduce_pallas, :187), which reduces one block of
-// bit-reversed digests a launch.  csrc/tree_reduce.cu launches the shipped
-// form (kTailShipped); tools/tail_variants.cu times the others beside it.
+// bit-reversed digests a launch.  csrc/tree_reduce.cu launches it.
 //
 // Bound on the H100: the dependent chain of node hashes, one level after
 // another, not the card's issue rate (a 1024-digest block is 1023 nodes, 0.2
@@ -27,18 +26,25 @@
 //     (out[i] = node(s[i], s[i + half])).  Natural pairs (s[2i], s[2i+1])
 //     would need a second buffer, since node i would overwrite s[i] while
 //     node i/2 still reads it;
-//   * warp specialisation (kTailPairs, shipped): a CTA is two pairs of warps,
-//     a round warp and a schedule warp each, on four schedulers (warp index
-//     mod 4).  The round warp runs the 3 x 64 rounds of its 32 nodes; the
-//     schedule warp computes the data block's and the finalization block's
-//     message schedules W[16..63] + K[t] ahead of them into shared memory and
-//     hands them over 16 words at a time through named barriers.  The ~960
+//   * warp specialisation: a CTA is two pairs of warps, a round warp and a
+//     schedule warp each, on four schedulers (warp index mod 4).  The round
+//     warp runs the 3 x 64 rounds of its 32 nodes; the schedule warp
+//     computes the data block's and the finalization block's message
+//     schedules W[16..63] + K[t] ahead of them into shared memory and hands
+//     them over 16 words at a time through named barriers.  The ~960
 //     schedule instructions of a node leave the chain's warp.
-// Measured (PERF.md, PR 5): a level still costs 6,500-8,400 SM clocks, ~40 a
-// round against ~30 of issue, the same work slower on some SMs than on others
-// (a level's ~47 KB of unrolled code is fetched from outside the SM; the
-// 15 KB form kTailPairsLooped runs at one speed on every SM, with more
-// instructions); rank 0 of a cut block waits for its slowest peer.
+// Measured (PERF.md, PR 5): the warp-specialised form beat every node-per-
+// thread form; a level still costs 6,500-8,400 SM clocks, ~40 a round against
+// ~30 of issue, the same work slower on some SMs than on others (a level's
+// ~47 KB of unrolled code is fetched from outside the SM; a 15 KB form with
+// one 64-round body looped over a node's 3 blocks runs at one speed on every
+// SM, with more instructions, and was 8% faster at 1024 digests but 8% slower
+// at 16 roots); rank 0 of a cut block waits for its slowest peer.  The forms
+// measured beside this one (plain nodes, IMAD adds, rolled 16- and 64-round
+// bodies, a shorter e-chain) are in
+// `git show 6ab2706:vk_merkle_roots_tpu_torch/csrc/tail_reduce.cuh`, and the
+// tool that timed them, with SM-clock stamps, under
+// `vk_merkle_roots_tpu_torch/tools/` of that revision.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -55,23 +61,6 @@ constexpr int kShare = 128;         // digests a CTA holds
 constexpr int kSoloMaxLog2 = 7;     // blocks of <= 128 digests stay on rank 0
 constexpr int kThreads = 128;       // two pairs of warps
 constexpr int kMaxLog2 = 10;
-
-// Forms of the kernel (template parameter V).  The port instantiates
-// kTailPairs only; tools/tail_variants.cu times every form beside it.
-constexpr int kTailPlain = 1;        // every thread runs vkmr::node_hash_words
-constexpr int kTailPairs = 2;        // round warp + schedule warp
-constexpr int kTailPairsImad = 3;    // the same, the round's two-input adds on the FMA pipe
-constexpr int kTailPairsRolled = 4;  // kTailPairs with one 16-round body looped 12 times a node
-constexpr int kTailPairsLooped = 5;  // kTailPairs with one 64-round body looped over a node's 3 blocks
-constexpr int kTailPairsShortE = 6;  // kTailPairs with d + h + W[t] + K[t] summed off the chain through e
-
-// A measurement hook: tools/tail_variants.cu defines it to stamp the SM clock
-// at the numbered points of a launch.  The port leaves it empty.
-#ifndef VKMR_TAIL_STAMP
-#define VKMR_TAIL_STAMP(point) \
-  do {                         \
-  } while (0)
-#endif
 
 struct TailBlock {
   const uint32_t* x;  // (8, ld) word-major digest columns
@@ -125,7 +114,6 @@ __device__ __forceinline__ void gather_cluster_roots(Smem& sm) {
   cluster_arrive();
   cluster_wait();
   const int tid = (int)threadIdx.x;
-  VKMR_TAIL_STAMP(12);
   if (tid < (kCluster - 1) * 8) {
     const int r = 1 + tid / 8, j = tid % 8;
     const uint32_t* peer = cooperative_groups::this_cluster().map_shared_rank(&sm.s[0][0], r);
@@ -133,36 +121,16 @@ __device__ __forceinline__ void gather_cluster_roots(Smem& sm) {
   }
   cta_sync();
   cluster_arrive();
-  VKMR_TAIL_STAMP(13);
 }
 
 __device__ __forceinline__ int level_half(int lev, int log2m, int log2n) {
   return lev < log2m ? 1 << (log2m - 1 - lev) : 1 << (log2n - 1 - lev);
 }
 
-// How a round sums its terms (round_wk's template parameter).
-constexpr int kAddPlain = 0;   // t1 = h + S1 + Ch + wk, e = d + t1
-constexpr int kAddImad = 1;    // the same, h + wk and d + t1 as IMAD with a multiplier of 1 that
-                               // ptxas cannot see, on the FMA pipe
-constexpr int kAddShortE = 2;  // e = (d + h + wk) + S1 + Ch: the sum of d, h and wk, known rounds
-                               // ahead, leaves the chain through e (one more add a round)
-
 // One round with W[t] + K[t] given.
-template <int kAdd>
-__device__ __forceinline__ void round_wk(uint32_t v[8], uint32_t wk, uint32_t one) {
-  uint32_t t1, e;
-  if (kAdd == kAddImad) {
-    t1 = (wk * one + v[7]) + vkmr::big_sigma1(v[4]) + vkmr::ch(v[4], v[5], v[6]);
-    e = t1 * one + v[3];
-  } else if (kAdd == kAddShortE) {
-    const uint32_t hk = v[7] + wk, dhk = v[3] + hk;
-    const uint32_t s1 = vkmr::big_sigma1(v[4]), c = vkmr::ch(v[4], v[5], v[6]);
-    t1 = hk + s1 + c;
-    e = dhk + s1 + c;
-  } else {
-    t1 = v[7] + vkmr::big_sigma1(v[4]) + vkmr::ch(v[4], v[5], v[6]) + wk;
-    e = v[3] + t1;
-  }
+__device__ __forceinline__ void round_wk(uint32_t v[8], uint32_t wk) {
+  const uint32_t t1 = v[7] + vkmr::big_sigma1(v[4]) + vkmr::ch(v[4], v[5], v[6]) + wk;
+  const uint32_t e = v[3] + t1;
   const uint32_t a = t1 + vkmr::big_sigma0(v[0]) + vkmr::maj(v[0], v[1], v[2]);
   v[7] = v[6]; v[6] = v[5]; v[5] = v[4]; v[4] = e;
   v[3] = v[2]; v[2] = v[1]; v[1] = v[0]; v[0] = a;
@@ -178,8 +146,7 @@ __device__ __forceinline__ void feed_forward(uint32_t out[8], const uint32_t v[8
 // from the schedule warp through barriers bar .. bar + 6.  Lanes past the
 // level's last node run along (they share the warp's barriers) but store
 // nothing.
-template <int kAdd>
-__device__ __forceinline__ void round_warp_level(Smem& sm, int p, int i, int half, int bar, uint32_t one) {
+__device__ __forceinline__ void round_warp_level(Smem& sm, int p, int i, int half, int bar) {
   const int lane = (int)threadIdx.x & 31;
   uint32_t w[16], iv[8], v[8], mid[8], out[8];
 #pragma unroll
@@ -192,19 +159,19 @@ __device__ __forceinline__ void round_warp_level(Smem& sm, int p, int i, int hal
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = iv[j];
 #pragma unroll
-  for (int t = 0; t < 16; ++t) round_wk<kAdd>(v, w[t] + vkmr::kRoundK[t], one);
+  for (int t = 0; t < 16; ++t) round_wk(v, w[t] + vkmr::kRoundK[t]);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     bar_sync(bar + c);
 #pragma unroll
-    for (int t = 16 * c + 16; t < 16 * c + 32; ++t) round_wk<kAdd>(v, sm.wk[p][0][t][lane], one);
+    for (int t = 16 * c + 16; t < 16 * c + 32; ++t) round_wk(v, sm.wk[p][0][t][lane]);
   }
   feed_forward(mid, v, iv);
   // Constant pad block.
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = mid[j];
 #pragma unroll
-  for (int t = 0; t < 64; ++t) round_wk<kAdd>(v, vkmr::kPad64SchedulePlusK[t], one);
+  for (int t = 0; t < 64; ++t) round_wk(v, vkmr::kPad64SchedulePlusK[t]);
   feed_forward(mid, v, mid);
 #pragma unroll
   for (int j = 0; j < 8; ++j) sm.st[p][j][lane] = mid[j];
@@ -215,71 +182,18 @@ __device__ __forceinline__ void round_warp_level(Smem& sm, int p, int i, int hal
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
     const uint32_t wt = t < 8 ? mid[t] : t == 8 ? 0x80000000u : t == 15 ? 256u : 0u;
-    round_wk<kAdd>(v, wt + vkmr::kRoundK[t], one);
+    round_wk(v, wt + vkmr::kRoundK[t]);
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     bar_sync(bar + 4 + c);
 #pragma unroll
-    for (int t = 16 * c + 16; t < 16 * c + 32; ++t) round_wk<kAdd>(v, sm.wk[p][1][t][lane], one);
+    for (int t = 16 * c + 16; t < 16 * c + 32; ++t) round_wk(v, sm.wk[p][1][t][lane]);
   }
   feed_forward(out, v, iv);
   if (i < half) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) sm.s[j][i] = out[j];
-  }
-}
-
-// The round warp's share of one level as round_warp_level computes it, every
-// round read from shared memory by one unrolled body of R rounds (16 or 64)
-// looped over the node's 192: W[0..15] + K of the data and finalization
-// blocks this warp writes itself, the pad block's come from `pad`, the rest
-// from the schedule warp.
-template <int R>
-__device__ __forceinline__ void round_warp_level_smem(Smem& sm, const uint32_t (*pad)[32], int p, int i, int half,
-                                                      int bar) {
-  const int lane = (int)threadIdx.x & 31;
-  uint32_t iv[8], v[8], mid[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    sm.wk[p][0][j][lane] = sm.s[j][i] + vkmr::kRoundK[j];
-    sm.wk[p][0][8 + j][lane] = sm.s[j][i + half] + vkmr::kRoundK[8 + j];
-  }
-  __syncwarp();
-  vkmr::initial_state(iv);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = iv[j];
-#pragma unroll 1
-  for (int c = 0; c < 192 / R; ++c) {
-    const int blk = c * R / 64, t0 = c * R % 64;
-    const uint32_t(*src)[32] = blk == 1 ? pad : (const uint32_t(*)[32])sm.wk[p][blk >> 1];
-#pragma unroll
-    for (int u = 0; u < R; ++u) {
-      // Rounds 16, 32 and 48 of the data and finalization blocks wait for
-      // their chunk of the schedule (barriers bar + 0..2 and bar + 4..6).
-      if (u % 16 == 0 && t0 + u > 0 && blk != 1) bar_sync(bar + (blk == 0 ? -1 : 3) + (t0 + u) / 16);
-      round_wk<kAddPlain>(v, src[t0 + u][lane], 1u);
-    }
-    if (t0 + R != 64) continue;
-    if (blk == 0) {
-      feed_forward(mid, v, iv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = mid[j];
-    } else if (blk == 1) {
-      feed_forward(mid, v, mid);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sm.st[p][j][lane] = mid[j];
-        sm.wk[p][1][j][lane] = mid[j] + vkmr::kRoundK[j];
-        sm.wk[p][1][8 + j][lane] = (j == 0 ? 0x80000000u : j == 7 ? 256u : 0u) + vkmr::kRoundK[8 + j];
-        v[j] = iv[j];
-      }
-      bar_arrive(bar + 3);
-      __syncwarp();
-    } else if (i < half) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sm.s[j][i] = iv[j] + v[j];
-    }
   }
 }
 
@@ -322,12 +236,9 @@ __device__ __forceinline__ void schedule_warp_level(Smem& sm, int p, int i, int 
 
 // Every perfect block of the table to its root: cluster c takes block b[c],
 // its CTAs the sub-blocks.  Launched in clusters of kCluster CTAs (launch_tail)
-// or, when no block has more than 128 digests, of one.  `one` must be 1.
-template <int V>
-__global__ void __launch_bounds__(kThreads) tail_reduce_kernel(const __grid_constant__ TailTable t, uint32_t one) {
+// or, when no block has more than 128 digests, of one.
+__global__ void __launch_bounds__(kThreads) tail_reduce_kernel(const __grid_constant__ TailTable t) {
   __shared__ Smem sm;
-  __shared__ uint32_t pad[V == kTailPairsRolled || V == kTailPairsLooped ? 64 : 1][32];
-  VKMR_TAIL_STAMP(0);
   const TailBlock& bk = t.b[blockIdx.x / cluster_nctarank()];
   const int rank = cluster_ctarank();
   const int log2n = bk.log2n;
@@ -352,59 +263,26 @@ __global__ void __launch_bounds__(kThreads) tail_reduce_kernel(const __grid_cons
 #pragma unroll
     for (int j = 0; j < 8; ++j) sm.s[j][slot] = __ldg(bk.x + j * bk.ld + src);
   }
-  if constexpr (V == kTailPairsRolled || V == kTailPairsLooped) {
-    for (int k = tid; k < 64 * 32; k += kThreads) pad[k / 32][k % 32] = vkmr::kPad64SchedulePlusK[k / 32];
-  }
   cta_sync();
-  VKMR_TAIL_STAMP(1);
   const int levels = rank == 0 ? log2n : log2m;
-  if (V == kTailPlain) {
+  // Warps 0, 1 run rounds; warps 2, 3 their schedules; pair p = warp % 2
+  // takes nodes [32p, 32p + 32) and barriers 1 + 7p .. 7 + 7p.
+  const int warp = tid >> 5, p = warp & 1, i = 32 * p + (tid & 31), bar = 1 + 7 * p;
+  if (warp < 2) {
 #pragma unroll 1
     for (int lev = 0; lev < levels; ++lev) {
       if (lev == log2m) gather_cluster_roots(sm);
       const int half = level_half(lev, log2m, log2n);
-      if (tid < half) {
-        uint32_t l[8], r[8], o[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          l[j] = sm.s[j][tid];
-          r[j] = sm.s[j][tid + half];
-        }
-        vkmr::node_hash_words(l, r, o);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sm.s[j][tid] = o[j];
-      }
+      if (32 * p < half) round_warp_level(sm, p, i, half, bar);
       cta_sync();
-      VKMR_TAIL_STAMP(2 + lev);
     }
   } else {
-    // Warps 0, 1 run rounds; warps 2, 3 their schedules; pair p = warp % 2
-    // takes nodes [32p, 32p + 32) and barriers 1 + 7p .. 7 + 7p.
-    const int warp = tid >> 5, p = warp & 1, i = 32 * p + (tid & 31), bar = 1 + 7 * p;
-    if (warp < 2) {
 #pragma unroll 1
-      for (int lev = 0; lev < levels; ++lev) {
-        if (lev == log2m) gather_cluster_roots(sm);
-        const int half = level_half(lev, log2m, log2n);
-        if (32 * p < half) {
-          if constexpr (V == kTailPairsRolled || V == kTailPairsLooped) {
-            round_warp_level_smem<V == kTailPairsRolled ? 16 : 64>(sm, pad, p, i, half, bar);
-          } else {
-            round_warp_level<V == kTailPairsImad ? kAddImad : V == kTailPairsShortE ? kAddShortE : kAddPlain>(
-                sm, p, i, half, bar, one);
-          }
-        }
-        cta_sync();
-        VKMR_TAIL_STAMP(2 + lev);
-      }
-    } else {
-#pragma unroll 1
-      for (int lev = 0; lev < levels; ++lev) {
-        if (lev == log2m) gather_cluster_roots(sm);
-        const int half = level_half(lev, log2m, log2n);
-        if (32 * p < half) schedule_warp_level(sm, p, i, half, bar);
-        cta_sync();
-      }
+    for (int lev = 0; lev < levels; ++lev) {
+      if (lev == log2m) gather_cluster_roots(sm);
+      const int half = level_half(lev, log2m, log2n);
+      if (32 * p < half) schedule_warp_level(sm, p, i, half, bar);
+      cta_sync();
     }
   }
   if (split) {
@@ -417,35 +295,26 @@ __global__ void __launch_bounds__(kThreads) tail_reduce_kernel(const __grid_cons
     }
     cluster_wait();
   }
-  VKMR_TAIL_STAMP(14);
   if (rank == 0) {
     VKMR_KDEBUG_EMIT("tail_kernel root_word0", sm.s[0][0]);
     if (tid < 8) t.out[bk.out_row * 8 + tid] = sm.s[tid][0];
   }
 }
 
-// Launch form V of the kernel over the table: clusters of kCluster CTAs if a
-// block has more than 128 digests, else one CTA a block.  `smem_pad` bytes of
-// dynamic shared memory a CTA (0 in the port) can keep the CTAs of a cluster
-// on SMs of their own.  Returns the launch's error code.
-template <int V>
-cudaError_t launch_tail(const TailTable& t, uint32_t one, int smem_pad, bool force_cluster, cudaStream_t stream) {
+// Launch the kernel over the table: clusters of kCluster CTAs if a block has
+// more than 128 digests, else one CTA a block.  Returns the launch's error
+// code.
+inline cudaError_t launch_tail(const TailTable& t, cudaStream_t stream) {
   if (t.n < 1 || t.n > kMaxTailBlocks) return cudaErrorInvalidValue;
-  bool split = force_cluster;
+  bool split = false;
   for (int k = 0; k < t.n; ++k) {
     if (t.b[k].log2n < 0 || t.b[k].log2n > kMaxLog2) return cudaErrorInvalidValue;
     split |= t.b[k].log2n > kSoloMaxLog2;
   }
   const int csize = split ? kCluster : 1;
-  if (smem_pad > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(tail_reduce_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_pad);
-    if (e != cudaSuccess) return e;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(t.n * csize);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_pad;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -454,7 +323,7 @@ cudaError_t launch_tail(const TailTable& t, uint32_t one, int smem_pad, bool for
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tail_reduce_kernel<V>, t, one);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, tail_reduce_kernel, t);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

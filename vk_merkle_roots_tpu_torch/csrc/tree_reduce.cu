@@ -16,8 +16,7 @@
 // every level above 1024 digests runs here, whatever its size.
 //
 // tail_reduce_kernel is bound by the chain of its levels; its design is in
-// csrc/tail_reduce.cuh.  tools/tail_variants.py measured the warp-specialised
-// form against the others (PERF.md).
+// csrc/tail_reduce.cuh, with the forms measured against it (PERF.md, PR 5).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,7 +27,6 @@
 namespace {
 
 constexpr int kFoldThreads = 256;
-constexpr int kTailShipped = vkmr_tail::kTailPairs;
 
 __global__ void __launch_bounds__(kFoldThreads)
 fold_level_kernel(const uint32_t* __restrict__ x, int64_t ld_in, uint32_t* __restrict__ out, int64_t ld_out,
@@ -64,6 +62,5 @@ extern "C" int vkmr_tail_table_bytes(void) { return (int)sizeof(vkmr_tail::TailT
 // K3 over the table's t.n blocks: one cluster of 8 CTAs a block, or one CTA
 // a block when none has more than 128 digests.
 extern "C" int vkmr_tail_reduce(const void* table, void* stream) {
-  return (int)vkmr_tail::launch_tail<kTailShipped>(*(const vkmr_tail::TailTable*)table, 1u, 0, false,
-                                                   (cudaStream_t)stream);
+  return (int)vkmr_tail::launch_tail(*(const vkmr_tail::TailTable*)table, (cudaStream_t)stream);
 }

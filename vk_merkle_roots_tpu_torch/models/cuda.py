@@ -23,8 +23,9 @@ What carries over, with the same semantics:
   ``<journal>.digests.<i>.npy`` sidecars (the same files, so either package
   resumes the other's journal) and ``Proof()``.  The journal and
   stream-digest methods and ``Proof()`` are ports of the JAX engine's
-  (``models/tpu.py:319-454``, :1188); the host queue, pack jobs, chunk merge
-  and host reduce are in :mod:`.host`.
+  (``models/tpu.py:319-454``, :1188); the host queue, pack jobs and host
+  reduce are in :mod:`.host`, the packing of a flush in
+  :func:`..packing.pack_flush`.
 
 What changed: the slice buffer is one ``(8, 2^slice_log2)`` int32 tensor
 with no slack region, because the leaf kernels write exact column counts; a
@@ -62,13 +63,13 @@ from ..ops.tree_reduce import (
     reduce_perfect_block,
     slice_root,
 )
-from ..packing import pack_flush, pack_spans
+from ..packing import pack_flush
 from ..utils.bitmath import bit_reverse_indices, is_pow2
 from ..utils.hexutil import words_to_digest
 from ..utils.log import event
 from ..utils.timing import StageTimes, StopWatch
 from .base import Sha256dEngine
-from .host import InlinePack, PackJob, PendingLeaves, host_reduce, merge_chunks
+from .host import InlinePack, PackJob, PendingLeaves, host_reduce
 
 _INFO = logging.INFO
 
@@ -416,29 +417,14 @@ class CudaSha256D(Sha256dEngine):
         self._fill += n
 
     def _pack_worker(self, chunks, group_flush: bool):
-        """Pack one flush batch into the wire format (on the pack thread, or
+        """Pack one flush batch into one packed unit (on the pack thread, or
         on the caller's when it would wait on the pack at once).  Touches only
-        the chunks, the config and the bit-reversal table.
-
-        A flush whose leaves all fit the exact buckets is one native pass
-        (:func:`..packing.pack_flush`: no interpreter lock, no OpenMP team,
-        one packed unit for all its chunks); any other goes through
-        ``merge_chunks`` and ``pack_spans``.  Returns the packed units with
-        their payload bytes, the pack's ms, and whether the pass took it."""
+        the chunks, the config and the bit-reversal table.  Returns the
+        ``PackedLeaves``, the pack's ms, and whether the native flush pass
+        packed it (:func:`..packing.pack_flush`)."""
         sw = StopWatch()
-        packed = pack_flush(chunks, self._rev_group if group_flush else None, self.config.device_max_blocks)
-        if packed is not None:
-            return [(packed, packed.total_bytes)], sw.Elapsed(), True
-        if group_flush:
-            data, offs, lens = merge_chunks(chunks)
-            perm = self._rev_group
-            work = [(pack_spans(data, offs[perm], lens[perm], self.config.device_max_blocks), int(lens.sum()))]
-        else:
-            work = [
-                (pack_spans(data, offs, lens, self.config.device_max_blocks), int(lens.sum()))
-                for data, offs, lens in chunks
-            ]
-        return work, sw.Elapsed(), False
+        packed, one_pass = pack_flush(chunks, self._rev_group if group_flush else None, self.config.device_max_blocks)
+        return packed, sw.Elapsed(), one_pass
 
     def _submit_packs(self, drain: bool = False) -> bool:
         """Producer half: pop pending leaves and hand them to the pack
@@ -534,7 +520,7 @@ class CudaSha256D(Sha256dEngine):
             self._slice_grouped = group_flush
         try:
             with self.times.span("pack_wait"):  # also when the pack is done: one a flush
-                work, t_pack, one_pass = job.future.result()
+                packed, t_pack, one_pass = job.future.result()
         except BaseException:
             # Whatever the pack thread raised, its leaves and every queued
             # job's return to the pending head before the error propagates.
@@ -546,20 +532,15 @@ class CudaSha256D(Sha256dEngine):
         self.times.add("pack", t_pack, job.nbytes, throughput=True)
         if one_pass:
             self.times.add("pack_one_pass", t_pack, job.nbytes, throughput=True)
-        done = 0
         try:
-            for packed, nbytes in work:
-                with self.times.span("map_dispatch", nbytes):
-                    self._append(packed, group_flush)
-                done += 1
+            with self.times.span("map_dispatch", job.nbytes):
+                self._append(packed, group_flush)
         except torch.cuda.OutOfMemoryError:
-            # A grouped flush is one work unit covering all its chunks.
-            consumed = len(job.chunks) if (group_flush and done) else done
             if self._fill == 0:
                 self._slice_grouped = None
-            self._requeue_jobs(job.chunks[consumed:])
+            self._requeue_jobs(job.chunks)
             floor = min(1024, self.config.batch_leaves)
-            if self._batch_cap <= floor and done == 0:
+            if self._batch_cap <= floor:
                 event("device_oom", batch_cap=self._batch_cap, fatal=True)
                 return False
             self._batch_cap = max(self._batch_cap // 2, floor)

@@ -1,10 +1,10 @@
-"""Host half of the streaming engine: the pending-leaf FIFO, pack jobs, the
-chunk merge of a group flush and the host Merkle reduce.
+"""Host half of the streaming engine: the pending-leaf FIFO, pack jobs and
+the host Merkle reduce.
 
 The port's copies of ``vk_merkle_roots_tpu/models/tpu.py``'s
 ``_PendingLeaves``, ``_PackJob`` and ``_InlinePack`` (:104-181) and of
-``TpuSha256D._merge_chunks`` (:690) and ``_host_reduce`` (:1068), with the
-same behaviour.  Nothing here touches a device.
+``TpuSha256D._host_reduce`` (:1068), with the same behaviour.  Nothing here
+touches a device; the chunk merge of a flush is :func:`..packing.merge_chunks`.
 """
 
 from __future__ import annotations
@@ -89,36 +89,6 @@ class InlinePack:
 
     def done(self) -> bool:
         return True  # ready: it runs on the caller's thread at result()
-
-
-def merge_chunks(chunks):
-    """Merge popped ``(data, offsets, lengths)`` chunks into one span set, so
-    a whole flush group packs (and is bit-reversal permuted) in one
-    ``pack_spans`` call.  One chunk is returned as it is.  Several copy their
-    covering byte range when the spans are dense (the streaming reader's
-    layout); sparse spans over a large shared buffer are gathered span by
-    span, so the copy is O(payload), not O(covered range)."""
-    if len(chunks) == 1:
-        return chunks[0]
-    datas, offs_parts, lens_parts = [], [], []
-    base = 0
-    for data, offs, lens in chunks:
-        lo = int(offs.min())
-        hi = int((offs + lens).max())
-        total = int(lens.sum())
-        if hi - lo <= 4 * total:
-            datas.append(data[lo:hi])
-            offs_parts.append(offs - lo + base)
-            lens_parts.append(lens)
-            base += hi - lo
-        else:
-            cum = np.concatenate(([0], np.cumsum(lens)[:-1]))
-            within = np.arange(total, dtype=np.int64) - np.repeat(cum, lens)
-            datas.append(data[np.repeat(offs, lens) + within])
-            offs_parts.append(cum + base)
-            lens_parts.append(lens)
-            base += total
-    return np.concatenate(datas), np.concatenate(offs_parts), np.concatenate(lens_parts)
 
 
 def host_reduce(rows: np.ndarray, height: int) -> bytes:

@@ -283,20 +283,57 @@ def pack_spans(
     )
 
 
-def pack_flush(chunks, perm: np.ndarray | None, max_device_blocks: int | None = None) -> PackedLeaves | None:
-    """The engine's flush pass: ``pack_spans`` of the flush's chunks joined
-    and gathered through ``perm`` (``merge_chunks`` then ``offsets[perm]``,
-    ``lengths[perm]``; chunk order when ``perm`` is None), as one native call
-    that reads each leaf where it lies.  The same buckets, ``order`` and
-    ``inverse_order``, but each bucket is ``ceil(count / 1024)`` tiles, not
-    :func:`quantized_tiles`, all in one allocation.  None, for the caller's
-    general path, when the library is not loaded or a leaf needs more than
-    ``UNROLL_MAX_BLOCKS`` or ``max_device_blocks`` blocks."""
+def merge_chunks(chunks):
+    """Merge popped ``(data, offsets, lengths)`` chunks into one span set, so
+    a whole flush packs (and is bit-reversal permuted) in one ``pack_spans``
+    call.  One chunk is returned as it is.  Several copy their covering byte
+    range when the spans are dense (the streaming reader's layout); sparse
+    spans over a large shared buffer are gathered span by span, so the copy
+    is O(payload), not O(covered range).  The port's copy of
+    ``vk_merkle_roots_tpu/models/tpu.py::TpuSha256D._merge_chunks`` (:690)."""
+    if len(chunks) == 1:
+        return chunks[0]
+    datas, offs_parts, lens_parts = [], [], []
+    base = 0
+    for data, offs, lens in chunks:
+        lo = int(offs.min())
+        hi = int((offs + lens).max())
+        total = int(lens.sum())
+        if hi - lo <= 4 * total:
+            datas.append(data[lo:hi])
+            offs_parts.append(offs - lo + base)
+            lens_parts.append(lens)
+            base += hi - lo
+        else:
+            cum = np.concatenate(([0], np.cumsum(lens)[:-1]))
+            within = np.arange(total, dtype=np.int64) - np.repeat(cum, lens)
+            datas.append(data[np.repeat(offs, lens) + within])
+            offs_parts.append(cum + base)
+            lens_parts.append(lens)
+            base += total
+    return np.concatenate(datas), np.concatenate(offs_parts), np.concatenate(lens_parts)
+
+
+def pack_flush(chunks, perm: np.ndarray | None, max_device_blocks: int | None = None) -> tuple[PackedLeaves, bool]:
+    """Pack one engine flush: its ``(data, offsets, lengths)`` chunks joined
+    and gathered through ``perm`` (chunk order when ``perm`` is None) into
+    one ``PackedLeaves``, and whether the native flush pass packed it.
+
+    The pass (``vkmr_pack_flush``) reads each leaf where it lies, in one
+    call that holds no interpreter lock and starts no OpenMP team: the
+    buckets, ``order`` and ``inverse_order`` of ``pack_spans``, but each
+    bucket ``ceil(count / 1024)`` tiles, not :func:`quantized_tiles`, all in
+    one allocation.  It declines a flush when the library is not loaded or a
+    leaf needs more than ``UNROLL_MAX_BLOCKS`` or ``max_device_blocks``
+    blocks; that flush is ``pack_spans`` of :func:`merge_chunks`, permuted."""
     from .native.lib import native_pack_flush
 
     got = native_pack_flush(chunks, perm, UNROLL_MAX_BLOCKS if max_device_blocks is None else max_device_blocks)
     if got is None:
-        return None
+        data, offs, lens = merge_chunks(chunks)
+        if perm is not None:
+            offs, lens = offs[perm], lens[perm]
+        return pack_spans(data, offs, lens, max_device_blocks), False
     words, order, inverse, rows, word_offsets, total = got
     buckets = []
     for b in range(1, UNROLL_MAX_BLOCKS + 1):
@@ -307,7 +344,7 @@ def pack_flush(chunks, perm: np.ndarray | None, max_device_blocks: int | None = 
             buckets.append(Bucket(b, bucket, count))
     if len(buckets) == 1:  # one bucket keeps the input order, as pack_spans' fast path says
         inverse = order
-    return PackedLeaves(buckets, order, inverse, int(order.size), total)
+    return PackedLeaves(buckets, order, inverse, int(order.size), total), True
 
 
 def pack_leaves(leaves: list[bytes]) -> PackedLeaves:
