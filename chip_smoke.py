@@ -482,7 +482,7 @@ def main() -> int:
     from vk_merkle_roots_tpu_torch.ops import merkle
     from vk_merkle_roots_tpu_torch.ops import perf_probe as pp
     from vk_merkle_roots_tpu_torch.ops import tree_reduce as tr
-    from vk_merkle_roots_tpu_torch.packing import pack_spans, split_lines
+    from vk_merkle_roots_tpu_torch.packing import FlushColumns, pack_flush, pack_spans, split_lines
     from vk_merkle_roots_tpu_torch.tools import perf_model
     from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices
     from vk_merkle_roots_tpu_torch.utils.hexutil import words_to_digest
@@ -769,6 +769,35 @@ def main() -> int:
     qblocks = sum(b.count * b.nblocks for b in qexact)
     work["leaf_hash_exact 2^18"] = dict(blocks=qblocks, leaves=1 << 18, bytes=qblocks * 64 + 32 * (1 << 18))
     print(f"{'leaf_hash_exact':17s} 2^18 rndm leaves, {len(qexact)} exact buckets, one launch: {t_quad:.4f} ms")
+    # K1's compact wire form on the same flush as the engine sends it: the
+    # pass's row table and raw bytes, copied once from a page-locked slot,
+    # each digest written at its group-bit-reversed column; byte-exact
+    # against its plain version and hashlib.
+    wslot = lh.WireSlot(dev)
+    wcols = FlushColumns(0, perm)
+    wunit, wire = pack_flush([(data, offs, lens)], wcols, 2048, wslot)
+    check(wire, "the 2^16-leaf rndm flush should take the compact wire")
+    wout = torch.full((8, 1 << 16), -1, dtype=torch.int32, device=dev)
+    wtable, wctas = lh.wire_tables(wunit, wslot.upload(wunit.nbytes, dev), wout)
+
+    def wire_launch():
+        _build.launch("leaf_hash_exact", "vkmr_leaf_hash_wire", ctypes.addressof(wtable), wctas,
+                      _build.stream_of(wout))
+        return wout
+
+    ms["leaf_hash_wire"], _ = cuda_ms(wire_launch, 20)
+    wblocks = sum(int(r) * b for b, r in enumerate(wunit.rows, 1))
+    work["leaf_hash_wire"] = dict(blocks=wblocks, leaves=1 << 16, bytes=wunit.nbytes + 32 * (1 << 16))
+    wplain = torch.full((8, 1 << 16), -1, dtype=torch.int32)
+    lh.wire_hash_plain(wunit, wplain)
+    err["leaf_hash_exact"] = max(err["leaf_hash_exact"], abs_err(u32(wout), u32(wplain)))
+    wdest, wleaves = wcols.of(1 << 16), flush.split(b"\n")[:-1]
+    for j in rng.integers(0, 1 << 16, size=256):
+        check(words_to_digest(u32(wout)[:, wdest[j]]) == oracle.leaf_hash(wleaves[j]),
+              f"leaf_hash_exact wire form: leaf {j} differs from hashlib")
+    print(f"{'leaf_hash_exact':17s} wire form, the same flush grouped ({wunit.nbytes} B in one copy against"
+          f" {sum(b.words.nbytes for b in fpacked.buckets)} B of packed words): {ms['leaf_hash_wire']:.4f} ms;"
+          f" max |kernel - plain| = {abs_err(u32(wout), u32(wplain))}")
     t_lone, got = cuda_ms(one_launch([lone], lout, False), 20)
     check(words_to_digest(u32(got)[:, 0]) == oracle.leaf_hash(bytes(one[0])), "K4 on one 64-block leaf != hashlib")
     longest = max(int(b.counts[: b.count].max()) for b in srungs)
@@ -1114,14 +1143,14 @@ def main() -> int:
     def alu(c) -> int:
         return sum(c["by_opcode"].get(op, 0) for op in perf_model.ALU_PIPE_OPCODES)
 
-    for name in ("leaf_hash_exact", "leaf_hash_stream"):
+    for name in ("leaf_hash_exact", "leaf_hash_wire", "leaf_hash_stream"):
         check(sass[name]["loop"] is not None, f"{name}: no block loop found in its SASS")
     node_alu = alu(sass["fold_level"])
     ops = {}
-    for name in ("leaf_hash_exact", "leaf_hash_stream", "leaf_hash_exact 2^18"):
-        # K1's block loop holds two compressions (a register buffer each), K4's
-        # one; the rest of the kernel is the finalization compression and the
-        # addressing, once a leaf.
+    for name in ("leaf_hash_exact", "leaf_hash_wire", "leaf_hash_stream", "leaf_hash_exact 2^18"):
+        # K1's block loop holds two compressions (a register buffer each), its
+        # wire form's and K4's one; the rest of the kernel is the finalization
+        # compression and the addressing, once a leaf.
         kernel = name.split()[0]
         per_loop = 2 if kernel == "leaf_hash_exact" else 1
         loop_alu, rest_alu = alu(sass[kernel]["loop"]), alu(sass[kernel]) - alu(sass[kernel]["loop"])
@@ -1166,7 +1195,7 @@ def main() -> int:
         ops[name] = alu(sass[name]["loop"]) * pp.PROBE_PASSES * tiles * pp.TILE
         work[name] = dict(bytes=tiles * (pp.PROBE_CHAINS + 1) * pp.TILE * 4)
     bound = {}
-    for name in [*replaces, "leaf_hash_exact 2^18"]:
+    for name in [*replaces, "leaf_hash_exact 2^18", "leaf_hash_wire"]:
         t_issue, t_bytes = ops[name] / alu_rate * 1e3, work[name]["bytes"] / 3.35e12 * 1e3
         t_ops = max(t_issue, chain.get(name, 0.0))
         bound[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")

@@ -19,7 +19,7 @@ from vk_merkle_roots_tpu_torch.ops import leaf_hash as lh
 from vk_merkle_roots_tpu_torch.ops import merkle
 from vk_merkle_roots_tpu_torch.ops import perf_probe as pp
 from vk_merkle_roots_tpu_torch.ops import tree_reduce as tr
-from vk_merkle_roots_tpu_torch.packing import pack_spans, split_lines, stream_capacity
+from vk_merkle_roots_tpu_torch.packing import FlushColumns, pack_flush, pack_spans, split_lines, stream_capacity
 from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices
 from vk_merkle_roots_tpu_torch.utils.hexutil import words_to_digest
 
@@ -113,6 +113,117 @@ def test_every_stream_rung_in_one_launch(cuda):
     lh.stream_hash_buckets_into(small, plain)
     for b in small:
         assert np.array_equal(cols[:, b.col : b.col + b.count], _u32(plain)[:, b.col : b.col + b.count])
+
+
+# K1's compact wire form: every bucket edge at every byte offset mod 4, from
+# two chunks, natural, grouped and a partial flush into a grouped slice.
+WIRE_EDGES = (1, 55, 56, 119, 120, 183, 184, 247, 248, 311, 312, 375, 376, 439, 440, 503)
+WIRE_CASES = [
+    ("edges", np.repeat(WIRE_EDGES, 4), FlushColumns(0)),
+    ("edges-bitrev", np.repeat(WIRE_EDGES, 64), FlushColumns(1024, bit_reverse_indices(10))),
+    ("partial-grouped", np.random.default_rng(3).integers(1, 127, 5000), FlushColumns(37, bit_reverse_indices(12))),
+]
+
+
+def _wire_unit(lengths, seed, columns, slot):
+    """A compact unit of leaves of ``lengths`` whose offsets step through
+    every residue mod 4, read from two chunks over one buffer."""
+    lengths = np.asarray(lengths, np.int64)
+    gaps = np.arange(lengths.size) % 4 + 1
+    offsets = np.concatenate(([0], np.cumsum(lengths + gaps)[:-1])).astype(np.int64)
+    data = np.random.default_rng(seed).integers(0, 256, int(offsets[-1] + lengths[-1] + 8), dtype=np.uint8)
+    half = lengths.size // 2
+    chunks = [(data, offsets[:half], lengths[:half]), (data, offsets[half:], lengths[half:])]
+    unit, wire = pack_flush(chunks, columns, 2048, slot)
+    assert wire and set(np.asarray(unit.offsets) % 4) == {0, 1, 2, 3}
+    return unit, [data[o : o + n].tobytes() for o, n in zip(offsets, lengths)]
+
+
+@pytest.mark.parametrize("lengths,columns", [c[1:] for c in WIRE_CASES], ids=[c[0] for c in WIRE_CASES])
+def test_wire_form_matches_plain_and_hashlib(cuda, lengths, columns):
+    """K1's compact form in one launch from a page-locked slot: each digest
+    at its column, byte-exact against the plain version and hashlib, every
+    other column untouched."""
+    slot = lh.WireSlot(cuda)
+    unit, leaves = _wire_unit(lengths, len(lengths), columns, slot)
+    assert slot.host.is_pinned()
+    cols = columns.of(len(leaves))
+    out = torch.full((8, int(cols.max()) + 9), -7, dtype=torch.int32, device=cuda)
+    _build.reset_counts()
+    lh.leaf_hashes(unit, cuda, out=out)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"leaf_hash_exact": 1} and not _build.plain_calls
+    plain = torch.full(tuple(out.shape), -7, dtype=torch.int32)
+    lh.wire_hash_plain(unit, plain)
+    assert np.array_equal(_u32(out), _u32(plain))
+    got = _u32(out)[:, cols]
+    assert [words_to_digest(got[:, i]) for i in range(len(leaves))] == [oracle.leaf_hash(x) for x in leaves]
+
+
+def test_wire_rows_out_of_range_are_clamped_on_the_card(cuda):
+    """Rows whose column is past the output, whose bytes run past the
+    region or whose length is past its bucket: the kernel clamps them as its
+    plain version does, and writes nothing outside its output."""
+    slot = lh.WireSlot(cuda)
+    unit, leaves = _wire_unit(np.repeat(WIRE_EDGES, 8), 9, FlushColumns(0), slot)
+    n = len(leaves)
+    first = np.concatenate(([0], np.cumsum(unit.rows)[:-1]))
+    unit.columns[first[0] + 1] = n + 3
+    unit.columns[first[7]] = 1 << 31
+    unit.offsets[first[1]] = unit.byte_len - 3
+    unit.offsets[first[2]] = 1 << 30
+    unit.lengths[first[3]] = 60000
+    guard = 4096
+    flat = torch.full((8 * n + 2 * guard,), -7, dtype=torch.int32, device=cuda)
+    out = flat[guard : guard + 8 * n].view(8, n)
+    lh.leaf_hashes(unit, cuda, out=out)
+    torch.cuda.synchronize()
+    assert bool((flat[:guard] == -7).all()) and bool((flat[guard + 8 * n :] == -7).all())
+    plain = torch.full((8, n), -7, dtype=torch.int32)
+    lh.wire_hash_plain(unit, plain)
+    assert np.array_equal(_u32(out), _u32(plain))
+    assert sum(bool((plain[:, c] == -7).all()) for c in range(n)) == 2
+
+
+class _DelayedCopies(CudaSha256D):
+    """The engine with ~10 ms of device work queued before each flush: the
+    card falls behind the host, so a flush's copy out of its slot is still
+    queued when the pack thread takes the slot back for a later flush."""
+
+    def _append(self, unit):
+        torch.cuda._sleep(20_000_000)
+        super()._append(unit)
+
+
+def test_engine_streams_twice_through_reused_page_locked_slots(cuda):
+    """A 2^21+12345-leaf rndm-127 stream, twice on one engine with pack_ahead
+    2: both roots are the oracle's, every flush took the compact wire, and
+    the second stream allocates no page-locked memory."""
+    from vk_merkle_roots_tpu_torch.native.lib import native_rndm_stream
+
+    n = (1 << 21) + 12345
+    stream = native_rndm_stream(1712489279, n, 127)
+    data, offs, lens = split_lines(stream)
+    want = oracle.merkle_root_sliced([data[o : o + x].tobytes() for o, x in zip(offs, lens)], 20).hex()
+
+    def pinned_blocks() -> int:
+        stats = torch.cuda.host_memory_stats()
+        key = next((k for k in ("num_host_alloc", "allocations.allocated") if k in stats), None)
+        assert key is not None, sorted(stats)
+        return stats[key]
+
+    e = _DelayedCopies(device=cuda, config=EngineConfig(slice_log2=20, batch_leaves=1 << 16, pack_ahead=2))
+    counts = []
+    for _ in range(2):
+        for lo in range(0, n, 100_000):  # reads of ~6.4 MB, as the CLI's
+            assert e.AddSpans(data, offs[lo : lo + 100_000], lens[lo : lo + 100_000])
+        assert e.Root() == want
+        stages = e.Stats()["stages"]
+        assert stages["pack_one_pass"]["count"] == stages["pack"]["count"] == stages["upload"]["count"]
+        torch.cuda.synchronize()
+        counts.append(pinned_blocks())
+        e.Reset()
+    assert counts[1] == counts[0] and all(s.host.is_pinned() for s in e._slots)
 
 
 @pytest.mark.parametrize("long_every", [0, 64])

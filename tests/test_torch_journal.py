@@ -281,11 +281,11 @@ def test_pack_failure_rolls_the_pipeline_back(monkeypatch, pack_ahead):
     real = CudaSha256D._pack_worker
     calls = [0]
 
-    def flaky(self, chunks, group_flush):
+    def flaky(self, *args):
         calls[0] += 1
         if calls[0] == 3:
             raise ValueError("fake: pack failed")
-        return real(self, chunks, group_flush)
+        return real(self, *args)
 
     monkeypatch.setattr(CudaSha256D, "_pack_worker", flaky)
     leaves = _leaves(19, 300, maxlen=30)

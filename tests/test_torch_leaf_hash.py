@@ -1,9 +1,10 @@
 """The port's leaf hashing (vk_merkle_roots_tpu_torch.ops.leaf_hash) on the
 CPU against the JAX package's leaf_hashes(backend="xla") and hashlib,
-column for column, on exact, stream and host-routed leaves; and the kernel
-tables the wrappers build for a flush."""
+column for column, on exact, stream and host-routed leaves and on the
+compact wire; and the kernel tables the wrappers build for a flush."""
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -13,7 +14,8 @@ from vk_merkle_roots_tpu.ops.leaf_hash import leaf_hashes as jax_leaf_hashes
 from vk_merkle_roots_tpu.packing import pack_spans as jax_pack_spans
 from vk_merkle_roots_tpu_torch import _build, oracle
 from vk_merkle_roots_tpu_torch.ops import leaf_hash as lh
-from vk_merkle_roots_tpu_torch.packing import pack_spans, stream_capacity
+from vk_merkle_roots_tpu_torch.packing import FlushColumns, pack_flush, pack_spans, stream_capacity
+from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices
 from vk_merkle_roots_tpu_torch.utils.hexutil import words_to_digest
 
 torch.set_num_threads(1)
@@ -220,3 +222,91 @@ def test_bucket_wrappers_reject_bad_tables():
     with pytest.raises(ValueError, match="block counts"):
         lh.stream_hash_buckets_into([stream[0]._replace(counts=bad)], out)
 
+
+
+# K1's compact wire form (ops/leaf_hash.py::wire_hash_into), its plain
+# version on the CPU: every bucket edge, at every byte offset mod 4, leaves
+# from two chunks, and columns scattered by the group bit reversal.
+WIRE_EDGES = (1, 55, 56, 119, 120, 183, 184, 247, 248, 311, 312, 375, 376, 439, 440, 503)
+
+
+def _wire_unit(lengths, seed, columns, parts=2):
+    """A compact unit of leaves of ``lengths`` whose offsets step through
+    every residue mod 4, read from ``parts`` chunks over one buffer."""
+    lengths = np.asarray(lengths, np.int64)
+    rng = np.random.default_rng(seed)
+    gaps = np.arange(lengths.size) % 4 + 1  # a newline and 0..3 more bytes after each leaf
+    offsets = np.concatenate(([0], np.cumsum(lengths + gaps)[:-1])).astype(np.int64)
+    data = rng.integers(0, 256, int(offsets[-1] + lengths[-1] + 8), dtype=np.uint8)
+    cuts = np.linspace(0, lengths.size, parts + 1).astype(int)
+    chunks = [(data, offsets[a:b], lengths[a:b]) for a, b in zip(cuts, cuts[1:])]
+    unit, wire = pack_flush(chunks, columns, 2048, lh.WireSlot("cpu"))
+    assert wire
+    return unit, [data[o : o + n].tobytes() for o, n in zip(offsets, lengths)]
+
+
+WIRE_CASES = [
+    # id, lengths, columns: every edge at every residue, natural from column 0
+    ("edges", np.repeat(WIRE_EDGES, 4), FlushColumns(0)),
+    # the same 64 leaves as one grouped flush, bit-reversed over its group
+    ("edges-bitrev", np.repeat(WIRE_EDGES, 4), FlushColumns(64, bit_reverse_indices(6))),
+    # rndm-like leaves as a partial flush into a grouped slice, over groups of 16
+    ("partial-grouped", np.random.default_rng(3).integers(1, 127, 90), FlushColumns(37, bit_reverse_indices(4))),
+]
+
+
+@pytest.mark.parametrize("lengths,columns", [c[1:] for c in WIRE_CASES], ids=[c[0] for c in WIRE_CASES])
+def test_wire_form_matches_jax(lengths, columns):
+    """K1's compact form on the CPU: each leaf's digest at its column, the
+    JAX package's leaf_hashes(backend="xla") and hashlib; every other column
+    untouched."""
+    unit, leaves = _wire_unit(lengths, len(lengths), columns)
+    assert set(np.asarray(unit.offsets) % 4) == {0, 1, 2, 3}
+    if len(lengths) == 64:
+        assert [int(r) for r in unit.rows] == [8] * 8
+    cols = columns.of(len(leaves))
+    out = torch.full((8, int(cols.max()) + 9), -7, dtype=torch.int32)
+    _build.reset_counts()
+    assert lh.leaf_hashes(unit, "cpu", out=out) is out
+    assert dict(_build.plain_calls) == {"leaf_hash_exact": 1} and not _build.launches
+    got = _cols_np(out)[:, cols]
+    want = np.asarray(jax_leaf_hashes(jax_pack_spans(*_spans(leaves)), backend="xla"))[:, : len(leaves)]
+    assert np.array_equal(got, want)
+    _assert_oracle(got, leaves)
+    untouched = np.ones(out.shape[1], bool)
+    untouched[cols] = False
+    assert bool((out[:, torch.from_numpy(untouched)] == -7).all())
+
+
+def test_wire_rows_out_of_range_are_clamped():
+    """A row whose column is at or past the output's width is not written; a
+    row whose bytes run past the region, or past its bucket, hashes the
+    bytes clamped to both, as K4 clamps its counts."""
+    unit, leaves = _wire_unit(np.repeat(WIRE_EDGES, 2), 5, FlushColumns(0))
+    n = len(leaves)
+    rows = {b: int(sum(unit.rows[: b - 1])) for b in (1, 2)}  # first row of buckets 1 and 2
+    unit.columns[rows[1] + 1] = n + 3  # past the width
+    unit.offsets[rows[1] + 2] = unit.byte_len - 3  # a 55-byte leaf past the region: 3 bytes left
+    unit.lengths[rows[2]] = 60000  # past its bucket of 2 blocks: 119 bytes
+    out = torch.full((8, n), -7, dtype=torch.int32)
+    lh.leaf_hashes(unit, "cpu", out=out)
+    cols = _cols_np(out)
+    lost = int(unit.columns[rows[1] + 1])
+    assert lost >= n and sum(bool((out[:, c] == -7).all()) for c in range(n)) == 1
+    region = unit.region
+    assert words_to_digest(cols[:, unit.columns[rows[1] + 2]]) == oracle.leaf_hash(region[-3:].tobytes())
+    o = int(unit.offsets[rows[2]])
+    assert words_to_digest(cols[:, unit.columns[rows[2]]]) == oracle.leaf_hash(region[o : o + 119].tobytes())
+
+
+def test_wire_form_checks_its_unit_and_output():
+    unit, _ = _wire_unit([10, 20, 30], 1, FlushColumns(0))
+    out = torch.empty((8, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        lh.wire_hash_into(unit, out.to(torch.int64))
+    with pytest.raises(ValueError):
+        lh.wire_hash_into(unit, torch.empty((8, 6), dtype=torch.int32)[:, ::2])
+    with pytest.raises(ValueError):
+        lh.wire_hash_into(dataclasses.replace(unit, count=4), out)
+    with pytest.raises(ValueError):
+        lh.wire_hash_into(dataclasses.replace(unit, nbytes=unit.nbytes + 4), out)

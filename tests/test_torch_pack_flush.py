@@ -1,8 +1,9 @@
 """The engine's packing of a flush (``packing.pack_flush``): its native pass
-(one call a flush) against the general path (``merge_chunks`` then
-``pack_spans``), its fallback to that path as one packed unit a flush, the
-``pack_one_pass`` stage, and the TORCH engine's roots through both against
-the oracle."""
+onto the compact wire (one call a flush: a row table and the raw bytes in
+one slot) against the general path (``merge_chunks`` then ``pack_spans``)
+and the slice's columns, its fallback to that path as one packed unit a
+flush, the ``pack_one_pass`` stage, and the TORCH engine's roots through
+both against the oracle."""
 
 import os
 import subprocess
@@ -15,11 +16,19 @@ import torch
 
 from vk_merkle_roots_tpu_torch import oracle
 from vk_merkle_roots_tpu_torch.config import EngineConfig
-from vk_merkle_roots_tpu_torch.constants import TILE
 from vk_merkle_roots_tpu_torch.models.cuda import CudaSha256D
 from vk_merkle_roots_tpu_torch.native import lib as native
-from vk_merkle_roots_tpu_torch.native.lib import native_available, native_pack_flush, native_rndm_stream
-from vk_merkle_roots_tpu_torch.packing import merge_chunks, pack_flush, pack_spans, split_lines
+from vk_merkle_roots_tpu_torch.native.lib import native_available, native_rndm_stream, native_wire_flush
+from vk_merkle_roots_tpu_torch.ops.leaf_hash import WireSlot
+from vk_merkle_roots_tpu_torch.packing import (
+    FlushColumns,
+    PackedLeaves,
+    WireFlush,
+    merge_chunks,
+    pack_flush,
+    pack_spans,
+    split_lines,
+)
 from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices
 
 torch.set_num_threads(1)
@@ -87,42 +96,66 @@ CASES = [
 ]
 
 
-def _general(chunks, perm, max_blocks=2048):
-    data, offs, lens = merge_chunks(chunks)
-    if perm is not None:
-        offs, lens = offs[perm], lens[perm]
-    return pack_spans(data, offs, lens, max_blocks)
+def _general(chunks, max_blocks=2048):
+    return pack_spans(*merge_chunks(chunks), max_blocks)
+
+
+def _columns(n, bitrev):
+    """A flush starting a grouped slice (its one group bit-reversed), or at
+    column 3 of a natural one."""
+    return FlushColumns(0, bit_reverse_indices(n.bit_length() - 1)) if bitrev else FlushColumns(3)
 
 
 @pytest.mark.parametrize("make,bitrev", [c[1:] for c in CASES], ids=[c[0] for c in CASES])
 def test_pass_equals_merge_and_pack_spans(make, bitrev):
-    """Orders equal, and each bucket's words equal the general path's first
-    ``ceil(count / 1024)`` tiles (its power-of-two tail is zeros only)."""
+    """The compact unit's rows are ``pack_spans``' order, bucket for bucket,
+    each row's bytes in the region are its leaf's, and each row's column is
+    its leaf's column in the slice."""
     chunks = make()
     n = sum(len(lens) for _, _, lens in chunks)
-    perm = bit_reverse_indices(n.bit_length() - 1) if bitrev else None
     assert not bitrev or n == 1 << (n.bit_length() - 1)
-    (got, one_pass), want = pack_flush(chunks, perm, 2048), _general(chunks, perm)
-    assert one_pass
-    assert (got.count, got.total_bytes, got.host_spans) == (want.count, want.total_bytes, None)
-    assert np.array_equal(got.order, want.order) and np.array_equal(got.inverse_order, want.inverse_order)
-    assert [(b.nblocks, b.count, b.counts) for b in got.buckets] == [(b.nblocks, b.count, None) for b in want.buckets]
-    for g, w in zip(got.buckets, want.buckets):
-        tiles = -(-g.count // TILE)
-        assert g.words.shape == (tiles, g.nblocks * 16, 8, 128) and g.words.dtype == np.uint32
-        assert np.array_equal(g.words, w.words[:tiles])
-        assert not w.words[tiles:].any()
-    assert (got.order is got.inverse_order) == (len(got.buckets) == 1)
+    columns = _columns(n, bitrev)
+    (got, wire), want = pack_flush(chunks, columns, 2048, WireSlot("cpu")), _general(chunks)
+    assert wire and isinstance(got, WireFlush)
+    assert (got.count, got.total_bytes, want.host_spans) == (want.count, want.total_bytes, None)
+    assert [(b + 1, int(r)) for b, r in enumerate(got.rows) if r] == [(b.nblocks, b.count) for b in want.buckets]
+    data, offs, lens = merge_chunks(chunks)
+    assert np.array_equal(got.lengths, lens[want.order])
+    assert np.array_equal(got.columns, columns.of(n)[want.order])
+    region = got.region
+    for r in np.linspace(0, n - 1, min(n, 300)).astype(np.int64):
+        o, leaf = int(got.offsets[r]), int(want.order[r])
+        assert region[o : o + lens[leaf]].tobytes() == data[offs[leaf] : offs[leaf] + lens[leaf]].tobytes()
+    spans = [(int((o + x).max() - o.min()), int(x.sum())) for _, o, x in chunks]
+    region_len = sum(covered if covered <= 4 * payload else payload for covered, payload in spans)
+    assert got.byte_len == -(-region_len // 4) * 4  # each chunk's covered range, or its spans when sparse
 
 
 def test_buckets_share_one_allocation_and_zero_their_last_tile():
+    """The table and the bytes of a unit share one buffer, the slot's, from
+    flush to flush, and the region's tail past the last byte is zero."""
+    slot = WireSlot("cpu")
     chunks = _chunked(_edges(2500), 3)
-    got, _ = pack_flush(chunks, None, 2048)
-    assert len(got.buckets) == 4 and len({id(b.words.base) for b in got.buckets}) == 1
-    for b in got.buckets:
-        last = b.words[-1].reshape(b.nblocks * 16, TILE)
-        assert last[:, b.count % TILE or TILE :].sum() == 0
-        assert (last[:, : (b.count - 1) % TILE + 1] != 0).any(axis=0).all()  # every real row has its 0x80
+    first, _ = pack_flush(chunks, FlushColumns(0), 2048, slot)
+    assert sum(r > 0 for r in first.rows) == 4 and first.buf.ctypes.data == slot.host.data_ptr()
+    assert first.byte_len - first.total_bytes < 4 and not first.region[first.total_bytes :].any()
+    again, _ = pack_flush(_chunked(_edges(2000), 2), FlushColumns(0), 2048, slot)
+    assert again.buf.ctypes.data == first.buf.ctypes.data  # no fresh buffer a flush
+    assert first.nbytes == 16 * -(-10 * 2500 // 16) + first.byte_len
+
+
+@pytest.mark.parametrize("start,count", [(5, 20), (14, 9), (16, 16), (0, 7)])
+def test_columns_of_a_partial_flush_into_a_grouped_slice_are_the_places(start, count):
+    """A partial flush into a grouped slice: the pass's columns are the
+    positions ``_place`` writes natural digests to (``FlushColumns.of``),
+    the group base plus the bit reversal of the in-group index."""
+    data, offs, lens = _rndm(count, seed=start + 11)
+    rev = bit_reverse_indices(3)
+    unit, wire = pack_flush([(data, offs, lens)], FlushColumns(start, rev), 2048, WireSlot("cpu"))
+    pos = np.arange(start, start + count)
+    want = (pos // 8) * 8 + rev[pos % 8]
+    assert wire and np.array_equal(np.sort(unit.columns), np.sort(want))
+    assert np.array_equal(unit.columns, want[_general([(data, offs, lens)]).order])
 
 
 @pytest.mark.parametrize("lens,max_blocks", [
@@ -133,15 +166,15 @@ def test_buckets_share_one_allocation_and_zero_their_last_tile():
 ])
 def test_pass_declines_what_the_exact_buckets_do_not_hold(lens, max_blocks):
     """The pass declines the flush, which is then the general path's one
-    packed unit."""
+    packed unit, in natural order."""
     lens = np.array(lens, np.int64)
     data = np.ones(int(lens.sum()), np.uint8)
     offs = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
     for chunks in ([(data, offs, lens)], [(data, offs[:1], lens[:1]), (data, offs[1:], lens[1:])]):
-        assert native_pack_flush(chunks, None, max_blocks) is None
-        got, one_pass = pack_flush(chunks, None, max_blocks)
+        assert native_wire_flush(chunks, 0, None, max_blocks, WireSlot("cpu")) is None
+        got, wire = pack_flush(chunks, FlushColumns(0), max_blocks, WireSlot("cpu"))
         want = pack_spans(data, offs, lens, max_blocks)
-        assert not one_pass
+        assert not wire and isinstance(got, PackedLeaves)
         assert np.array_equal(got.order, want.order) and np.array_equal(got.inverse_order, want.inverse_order)
         assert [(b.nblocks, b.count) for b in got.buckets] == [(b.nblocks, b.count) for b in want.buckets]
         assert all(np.array_equal(g.words, w.words) for g, w in zip(got.buckets, want.buckets))
@@ -150,13 +183,19 @@ def test_pass_declines_what_the_exact_buckets_do_not_hold(lens, max_blocks):
 @pytest.mark.parametrize("offs,lens", [((0, 90), (10, 20)), ((-1, 0), (10, 20)), ((0, 5), (10, -3))])
 def test_pass_declines_spans_outside_their_chunk(offs, lens):
     data = np.ones(100, np.uint8)
-    assert native_pack_flush([(data, np.array(offs, np.int64), np.array(lens, np.int64))], None, 2048) is None
+    chunks = [(data, np.array(offs, np.int64), np.array(lens, np.int64))]
+    assert native_wire_flush(chunks, 0, None, 2048, WireSlot("cpu")) is None
 
 
 def test_pass_rejects_a_permutation_of_another_size():
+    """A group permutation must have a power of two of entries, each inside
+    its group: the first raises, the second declines the flush."""
     data, offs, lens = _rndm(64)
     with pytest.raises(ValueError, match="permutation"):
-        pack_flush([(data, offs, lens)], bit_reverse_indices(5), 2048)
+        pack_flush([(data, offs, lens)], FlushColumns(0, np.arange(48)), 2048, WireSlot("cpu"))
+    outside = bit_reverse_indices(5)
+    outside[3] = 32
+    assert native_wire_flush([(data, offs, lens)], 0, outside, 2048, WireSlot("cpu")) is None
 
 
 def _engine(**kw):
@@ -181,7 +220,7 @@ def _add_in_chunks(engine, leaves, per):
 
 # (batch_leaves, chunk size, leaves, pack_ahead): 8 is a power of two, so
 # full flushes are grouped (bit-reversed); 6 keeps the natural layout.
-ENGINE = [(8, 3, 45, 2), (8, 8, 37, 0), (6, 4, 40, 2), (6, 1, 23, 0)]
+ENGINE = [(8, 3, 45, 2), (8, 8, 37, 0), (6, 4, 40, 2), (6, 1, 23, 0), (8, 5, 45, 1), (6, 3, 40, 1)]
 
 
 @pytest.mark.parametrize("batch,per,count,pack_ahead", ENGINE)
@@ -264,9 +303,9 @@ def test_a_drain_with_nothing_queued_packs_on_the_callers_thread(monkeypatch, co
     real = CudaSha256D._pack_worker
     phase, ran = ["add"], []
 
-    def recording(self, chunks, group_flush):
+    def recording(self, *args):
         ran.append((phase[0], threading.current_thread() is threading.main_thread()))
-        return real(self, chunks, group_flush)
+        return real(self, *args)
 
     monkeypatch.setattr(CudaSha256D, "_pack_worker", recording)
     leaves = _leaves(count * 10 + per, count)
@@ -313,13 +352,15 @@ def test_the_pass_starts_no_thread():
     code = (
         "import os, numpy as np\n"
         "from vk_merkle_roots_tpu_torch.native import lib\n"
-        "from vk_merkle_roots_tpu_torch.packing import pack_flush, split_lines\n"
+        "from vk_merkle_roots_tpu_torch.ops.leaf_hash import WireSlot\n"
+        "from vk_merkle_roots_tpu_torch.packing import FlushColumns, pack_flush, split_lines\n"
         "from vk_merkle_roots_tpu_torch.utils.bitmath import bit_reverse_indices\n"
         "d, o, l = split_lines(np.frombuffer(lib.native_rndm_stream(7, 1 << 16, 127), np.uint8))\n"
+        "slot, cols = WireSlot('cpu'), FlushColumns(0, bit_reverse_indices(16))\n"
         "threads = lambda: len(os.listdir('/proc/self/task'))\n"
         "before = threads()\n"
         "for _ in range(3):\n"
-        "    assert pack_flush([(d, o, l)], bit_reverse_indices(16), 2048)[1]\n"
+        "    assert pack_flush([(d, o, l)], cols, 2048, slot)[1]\n"
         "after = threads()\n"
         "lib.native_pack_bucket_tiles(d, o, l, 2, 64)\n"
         "print(before, after, threads(), lib._load()._name.endswith('_omp.so'))\n"

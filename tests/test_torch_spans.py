@@ -64,14 +64,21 @@ def test_pack_wait_counts_one_a_flush(pack_ahead):
 
 @pytest.mark.parametrize("long_every", [0, 5])
 def test_upload_bytes_are_the_flushes_words_and_counts(monkeypatch, long_every):
-    """``upload`` holds the packed words and block counts that
-    ``flush_buckets`` copies, one span a flush; the host-hashed digests of
-    leaves past ``device_max_blocks`` and the inverse order are copied after
-    the kernels are launched, outside it, so the host hashes while the device
-    runs."""
+    """``upload`` holds what a flush copies, one span a flush: a compact
+    unit's slot bytes in use (its row table and raw bytes), or a declined
+    flush's packed words and block counts that ``flush_buckets`` copies; the
+    host-hashed digests of leaves past ``device_max_blocks`` and the inverse
+    order are copied after the kernels are launched, outside it, so the host
+    hashes while the device runs."""
     copied, calls = [], []
     flush_buckets, host_cols = leaf_hash.flush_buckets, leaf_hash.host_leaf_digest_cols
     exact_into, stream_into = leaf_hash.exact_hash_buckets_into, leaf_hash.stream_hash_buckets_into
+    wire_into = leaf_hash.wire_hash_into
+
+    def counting_wire_into(unit, *args, **kw):
+        calls.append("upload")
+        copied.append(unit.nbytes)
+        return wire_into(unit, *args, **kw)
 
     def counting_flush_buckets(packed, *args, **kw):
         calls.append("upload")
@@ -87,6 +94,7 @@ def test_upload_bytes_are_the_flushes_words_and_counts(monkeypatch, long_every):
         return call
 
     monkeypatch.setattr(leaf_hash, "flush_buckets", counting_flush_buckets)
+    monkeypatch.setattr(leaf_hash, "wire_hash_into", counting_wire_into)
     monkeypatch.setattr(leaf_hash, "host_leaf_digest_cols", logged("host", host_cols))
     monkeypatch.setattr(leaf_hash, "exact_hash_buckets_into", logged("exact", exact_into))
     monkeypatch.setattr(leaf_hash, "stream_hash_buckets_into", logged("stream", stream_into))
@@ -98,6 +106,7 @@ def test_upload_bytes_are_the_flushes_words_and_counts(monkeypatch, long_every):
     assert stages["upload"]["bytes"] == sum(copied) > 0
     assert stages["upload"]["count"] == stages["map_dispatch"]["count"] == calls.count("upload")
     assert ("host" in calls) == bool(long_every)
+    assert stages.get("pack_one_pass", {"count": 0})["count"] == (0 if long_every else stages["upload"]["count"])
     for i, name in enumerate(calls):  # each flush: its upload, then K1 and K4, then the host digests
         if name == "host":
             assert calls[i - 3 : i] == ["upload", "exact", "stream"]

@@ -140,12 +140,19 @@ def load() -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.vkmr_leaf_hash_exact.argtypes = [vp, i, vp]
         lib.vkmr_leaf_hash_stream.argtypes = [vp, i, vp]
-        from .ops.leaf_hash import LeafTable
+        lib.vkmr_leaf_hash_wire.argtypes = [vp, i, vp]
+        lib.vkmr_wire_upload.argtypes = [vp, vp, ll, vp, vp]
+        lib.vkmr_event_new.restype = vp
+        lib.vkmr_event_wait.argtypes = [vp]
+        lib.vkmr_event_free.argtypes = [vp]
+        from .ops.leaf_hash import LeafTable, WireTable
         from .ops.tree_reduce import TailTable
 
         lib.vkmr_leaf_table_bytes.restype = i
+        lib.vkmr_wire_table_bytes.restype = i
         lib.vkmr_tail_table_bytes.restype = i
         for name, struct, src, mod in (("leaf", LeafTable, "leaf_hash.cu", "leaf_hash"),
+                                       ("wire", WireTable, "leaf_hash.cu", "leaf_hash"),
                                        ("tail", TailTable, "tail_reduce.cuh", "tree_reduce")):
             size = getattr(lib, f"vkmr_{name}_table_bytes")()
             if size != ctypes.sizeof(struct):
@@ -155,8 +162,9 @@ def load() -> ctypes.CDLL:
         lib.vkmr_tail_reduce.argtypes = [vp, vp]
         lib.vkmr_alu_probe.argtypes = [vp, vp, ll, vp]
         lib.vkmr_rot_probe.argtypes = [vp, vp, ll, vp]
-        for fn in ("vkmr_leaf_hash_exact", "vkmr_leaf_hash_stream", "vkmr_fold_level", "vkmr_tail_reduce",
-                   "vkmr_alu_probe", "vkmr_rot_probe"):
+        for fn in ("vkmr_leaf_hash_exact", "vkmr_leaf_hash_stream", "vkmr_leaf_hash_wire", "vkmr_wire_upload",
+                   "vkmr_event_wait", "vkmr_event_free", "vkmr_fold_level", "vkmr_tail_reduce", "vkmr_alu_probe",
+                   "vkmr_rot_probe"):
             getattr(lib, fn).restype = i
         lib.vkmr_cuda_error_string.argtypes = [i]
         lib.vkmr_cuda_error_string.restype = ctypes.c_char_p

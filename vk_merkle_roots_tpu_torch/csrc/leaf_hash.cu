@@ -36,6 +36,21 @@
 // word-major into an (8, ld) output at each bucket's first column, so the
 // engine hashes straight into its slice buffer.  A stream leaf loops over its
 // own real block count only.
+//
+// The compact wire (packing.WireFlush): the engine's flushes of short leaves
+// reach the card as their raw bytes and a row table (u32 byte offset, u16
+// length, u32 destination column), 1.5x fewer bytes than padded words for
+// 1-126 B leaves, and no pad, transpose or reorder on the host.  The exact
+// kernel's second overload reads it, as the reference's shader pads
+// (SHA-256.comp:207-285): one leaf per thread, the bucket's block count fixed
+// per CTA, rows in table order; each thread takes its row's bytes with
+// aligned 4-byte loads, funnels them into big-endian words with __byte_perm,
+// sets the 0x80 byte and the bit length in registers, and stores its digest
+// at its row's column, which folds in the slice's group bit reversal.  Block
+// b+1's aligned words are in flight while block b compresses.  Rows hold
+// consecutive leaves, so a warp's loads fall on a few KB of bytes; its
+// stores scatter by the bit reversal.  Both overloads keep the name
+// leaf_hash_exact_kernel, which the benchmark's trace reader looks for.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +61,7 @@ namespace {
 
 constexpr int kTile = 1024;
 constexpr int kMaxBuckets = 32;  // ops/leaf_hash.py MAX_TABLE_BUCKETS
+constexpr int kMaxWireBuckets = 8;  // the exact buckets of 1..8 blocks
 constexpr int kExactThreads = 128;
 constexpr int kStreamThreads = 32;
 
@@ -67,13 +83,34 @@ struct LeafTable {
   LeafBucket b[kMaxBuckets];
 };
 
+struct WireBucket {
+  int nblocks;    // blocks per leaf
+  int count;      // rows
+  int row_begin;  // first row of the bucket in the row table
+  int cta_begin;  // first CTA of the bucket in the launch
+};
+
+struct WireTable {
+  uint32_t* out;           // (8, ld) int32 digest columns
+  long long ld;
+  const uint8_t* bytes;    // the byte region, 4-byte aligned
+  long long nbytes;        // its length, a multiple of 4
+  const uint32_t* off;     // per row: byte offset into the region
+  const uint32_t* dst;     // per row: destination column
+  const uint16_t* len;     // per row: leaf length
+  int n;                   // buckets in use
+  int pad;
+  WireBucket b[kMaxWireBuckets];
+};
+
 __device__ __forceinline__ void load_block(const uint32_t* __restrict__ p, int b, uint32_t w[16]) {
 #pragma unroll
   for (int t = 0; t < 16; ++t) w[t] = __ldg(p + (int64_t)(b * 16 + t) * kTile);
 }
 
 // The bucket of this CTA: the last whose first CTA is at or below blockIdx.x.
-__device__ __forceinline__ int bucket_of_cta(const LeafTable& t) {
+template <class Table>
+__device__ __forceinline__ int bucket_of_cta(const Table& t) {
   int k = 0;
   while (k + 1 < t.n && (int)blockIdx.x >= t.b[k + 1].cta_begin) ++k;
   return k;
@@ -109,6 +146,64 @@ __global__ void __launch_bounds__(kExactThreads) leaf_hash_exact_kernel(const __
   vkmr::finalize_sha256d(s);
   VKMR_KDEBUG_EMIT("leaf_kernel d0[lane0]", s[0]);
   store_digest(t, bk, r, s);
+}
+
+// Aligned words q = 16b .. 16b+16 of a row whose bytes start at p (aligned
+// down) and span lim bytes from there; words past the row read as zero.
+__device__ __forceinline__ void load_wire_words(const uint32_t* __restrict__ p, int lim, int b, uint32_t a[17]) {
+#pragma unroll
+  for (int k = 0; k < 17; ++k) {
+    const int q = b * 16 + k;
+    a[k] = 4 * q < lim ? __ldg(p + q) : 0u;
+  }
+}
+
+// Message words of one block from its 17 aligned words: the row's bytes
+// from the row's offset (sel picks them, big-endian), the 0x80 byte after
+// the last, zeros after that.  left: the row's bytes from this block on.
+__device__ __forceinline__ void wire_block(const uint32_t a[17], uint32_t sel, int left, uint32_t w[16]) {
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    uint32_t v = __byte_perm(a[t], a[t + 1], sel);
+    const int r = left - 4 * t;  // bytes of the row from this word on
+    if (r < 4) v = r < 0 ? 0u : (v & ~(0xffffffffu >> (8 * r))) | (0x80000000u >> (8 * r));
+    w[t] = v;
+  }
+}
+
+// The compact wire's form of K1 (see the head of this file).  A row is
+// bound-checked as K4 clamps its counts: its bytes are clamped into the
+// region and its bucket, and a column at or past ld is never written.
+__global__ void __launch_bounds__(kExactThreads) leaf_hash_exact_kernel(const __grid_constant__ WireTable t) {
+  const WireBucket& bk = t.b[bucket_of_cta(t)];
+  const int i = ((int)blockIdx.x - bk.cta_begin) * kExactThreads + (int)threadIdx.x;
+  if (i >= bk.count) return;
+  const int row = bk.row_begin + i;
+  const long long col = t.dst[row];
+  if (col >= t.ld) return;
+  const int nblocks = bk.nblocks;
+  const long long off = min((long long)t.off[row], t.nbytes);
+  const int len = (int)min(min((long long)t.len[row], t.nbytes - off), (long long)(nblocks * 64 - 9));
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(t.bytes + (off & ~3LL));
+  const int sh = (int)(off & 3);
+  const uint32_t sel = (uint32_t)((sh << 12) | ((sh + 1) << 8) | ((sh + 2) << 4) | (sh + 3));
+  const int lim = sh + len;
+  uint32_t s[8], a[17], w[16];
+  vkmr::initial_state(s);
+  load_wire_words(p, lim, 0, a);
+#pragma unroll 1
+  for (int b = 0; b < nblocks; ++b) {
+    wire_block(a, sel, len - 64 * b, w);
+    if (b + 1 < nblocks) {
+      load_wire_words(p, lim, b + 1, a);  // in flight while block b compresses
+    } else {
+      w[15] = (uint32_t)len << 3;  // the bit length; its high word (w[14]) is zero
+    }
+    vkmr::compress(s, w);
+  }
+  vkmr::finalize_sha256d(s);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t.out[j * t.ld + col] = s[j];
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* g) {
@@ -168,6 +263,32 @@ extern "C" int vkmr_leaf_hash_exact(const void* table, int grid, void* stream) {
   leaf_hash_exact_kernel<<<grid, kExactThreads, 0, (cudaStream_t)stream>>>(*(const LeafTable*)table);
   return (int)cudaGetLastError();
 }
+
+extern "C" int vkmr_wire_table_bytes(void) { return (int)sizeof(WireTable); }
+
+extern "C" int vkmr_leaf_hash_wire(const void* table, int grid, void* stream) {
+  leaf_hash_exact_kernel<<<grid, kExactThreads, 0, (cudaStream_t)stream>>>(*(const WireTable*)table);
+  return (int)cudaGetLastError();
+}
+
+// The compact wire's one copy a flush: the unit's bytes from its page-locked
+// slot to the device, and the slot's event recorded after the copy, in one
+// call; the pass waits on that event before it writes the slot again.
+extern "C" int vkmr_wire_upload(void* dst, const void* src, long long n, void* stream, void* event) {
+  cudaError_t err = cudaMemcpyAsync(dst, src, (size_t)n, cudaMemcpyHostToDevice, (cudaStream_t)stream);
+  if (err == cudaSuccess) err = cudaEventRecord((cudaEvent_t)event, (cudaStream_t)stream);
+  return (int)err;
+}
+
+// An event of the current device, for vkmr_wire_upload (null on failure).
+extern "C" void* vkmr_event_new(void) {
+  cudaEvent_t event = nullptr;
+  return cudaEventCreateWithFlags(&event, cudaEventDisableTiming) == cudaSuccess ? (void*)event : nullptr;
+}
+
+extern "C" int vkmr_event_wait(void* event) { return (int)cudaEventSynchronize((cudaEvent_t)event); }
+
+extern "C" int vkmr_event_free(void* event) { return (int)cudaEventDestroy((cudaEvent_t)event); }
 
 extern "C" int vkmr_leaf_hash_stream(const void* table, int grid, void* stream) {
   leaf_hash_stream_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(*(const LeafTable*)table);

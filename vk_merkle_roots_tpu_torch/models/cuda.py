@@ -12,9 +12,10 @@ What carries over, with the same semantics:
   them to a packing thread against *planned* slice state, ``_dispatch_job``
   consumes packed batches strictly in order, so plan and reality agree (a
   drain with nothing queued packs on the caller's thread);
-* group-bitrev slices: a flush of exactly one aligned power-of-two batch is
-  packed in bit-reversed order, so the full slice reduces with no device
-  permutation (``ops.tree_reduce.reduce_grouped_body``);
+* group-bitrev slices: a flush of exactly one aligned power-of-two batch
+  starts a slice whose digests are stored group-bit-reversed, so the full
+  slice reduces with no device permutation
+  (``ops.tree_reduce.reduce_grouped_body``);
 * a bound on un-read slice roots, materialized in one stacked readback;
 * ``Root()``: ragged tails up to ``host_tail_leaves`` reduce on the host,
   longer ones by binary decomposition on the device;
@@ -29,7 +30,12 @@ What carries over, with the same semantics:
 
 What changed: the slice buffer is one ``(8, 2^slice_log2)`` int32 tensor
 with no slack region, because the leaf kernels write exact column counts; a
-partial flush into a grouped slice is an ``index_copy_``; the stages of
+flush of short leaves goes to the card on the compact wire, its raw bytes
+and a row table in one reused, page-locked slot (``ops.leaf_hash.WireSlot``,
+one per flush packed ahead), and K1 writes each digest at its slice column,
+the bit reversal of a grouped slice folded in; a flush the wire declines
+(long leaves) is hashed in natural order and placed by an ``index_copy_``
+in a grouped slice; the stages of
 ``Stats()`` are host spans (``StageTimes.span``), which a running profiler
 also records as ``vkmr.<stage>`` ranges, and device time by layer comes from
 the profiler's trace alone; an out-of-memory error is
@@ -63,7 +69,8 @@ from ..ops.tree_reduce import (
     reduce_perfect_block,
     slice_root,
 )
-from ..packing import pack_flush
+from ..ops.leaf_hash import WireSlot
+from ..packing import FlushColumns, WireFlush, pack_flush
 from ..utils.bitmath import bit_reverse_indices, is_pow2
 from ..utils.hexutil import words_to_digest
 from ..utils.log import event
@@ -121,6 +128,11 @@ class CudaSha256D(Sha256dEngine):
             name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "TORCH"
         super().__init__(name)
         self._executor = None
+        # One staging slot per flush packed ahead, taken in turn and kept
+        # across streams: the flush that takes a slot back was submitted after
+        # the dispatch that copied out of it.
+        self._slots = [WireSlot(self.device) for _ in range(max(1, self.config.pack_ahead))]
+        self._slot_turn = 0
         self.Reset()
 
     # -- state ---------------------------------------------------------------
@@ -391,40 +403,44 @@ class CudaSha256D(Sha256dEngine):
                 os.unlink(tmp)
             raise
 
-    def _append(self, packed, group_flush: bool) -> None:
+    def _append(self, unit) -> None:
         """Hash one packed batch into the slice buffer at ``_fill``.  An
         engine that hashes a batch elsewhere overrides this and hands the
         digests to :meth:`_place`."""
-        if self._slice_grouped and not group_flush:
-            self._place(leaf_hashes(packed, self.device, times=self.times), group_flush)
+        if isinstance(unit, WireFlush):  # K1 writes each digest at its slice column
+            leaf_hashes(unit, self.device, out=self._buf, times=self.times)
+            self._fill += unit.count
+        elif self._slice_grouped:
+            self._place(leaf_hashes(unit, self.device, times=self.times))
         else:
-            leaf_hashes(packed, self.device, out=self._buf, offset=self._fill, times=self.times)
-            self._fill += packed.count
+            leaf_hashes(unit, self.device, out=self._buf, offset=self._fill, times=self.times)
+            self._fill += unit.count
 
-    def _place(self, digs: torch.Tensor, group_flush: bool) -> None:
-        """Copy one batch's (8, n) digest columns into the slice buffer at
-        ``_fill``."""
+    def _place(self, digs: torch.Tensor) -> None:
+        """Copy one batch's (8, n) natural-order digest columns into the
+        slice buffer from ``_fill``, at the columns of the slice's layout."""
         n = digs.shape[1]
-        if self._slice_grouped and not group_flush:
-            # Partial flush into a grouped slice: natural position p lands
-            # at its group's base plus the bit reversal of its in-group index.
-            k = self._group_log2
-            pos = np.arange(self._fill, self._fill + n, dtype=np.int64)
-            dest = ((pos >> k) << k) + self._rev_group[pos & ((1 << k) - 1)]
+        if self._slice_grouped:
+            dest = FlushColumns(self._fill, self._rev_group).of(n)
             self._buf.index_copy_(1, torch.from_numpy(dest).to(self.device), digs)
         else:
             self._buf[:, self._fill : self._fill + n] = digs
         self._fill += n
 
-    def _pack_worker(self, chunks, group_flush: bool):
-        """Pack one flush batch into one packed unit (on the pack thread, or
-        on the caller's when it would wait on the pack at once).  Touches only
-        the chunks, the config and the bit-reversal table.  Returns the
-        ``PackedLeaves``, the pack's ms, and whether the native flush pass
-        packed it (:func:`..packing.pack_flush`)."""
+    def _flush_columns(self, start: int, grouped: bool) -> FlushColumns:
+        """Where the digests of a flush starting at slice column ``start``
+        land in the slice buffer, whose layout is ``grouped`` or natural."""
+        return FlushColumns(start, self._rev_group if grouped else None)
+
+    def _pack_worker(self, chunks, columns: FlushColumns, slot: WireSlot):
+        """Pack one flush batch into one unit (on the pack thread, or on the
+        caller's when it would wait on the pack at once).  Touches only the
+        chunks, the config and the slot.  Returns the unit, the pack's ms,
+        and whether it went onto the compact wire
+        (:func:`..packing.pack_flush`)."""
         sw = StopWatch()
-        packed, one_pass = pack_flush(chunks, self._rev_group if group_flush else None, self.config.device_max_blocks)
-        return packed, sw.Elapsed(), one_pass
+        unit, wire = pack_flush(chunks, columns, self.config.device_max_blocks, slot)
+        return unit, sw.Elapsed(), wire
 
     def _submit_packs(self, drain: bool = False) -> bool:
         """Producer half: pop pending leaves and hand them to the pack
@@ -454,6 +470,10 @@ class CudaSha256D(Sha256dEngine):
             )
             if self._plan_fill == 0:
                 self._plan_grouped = group_flush
+            start = self._plan_fill
+            columns = self._flush_columns(start, bool(self._plan_grouped))
+            slot = self._slots[self._slot_turn % len(self._slots)]
+            self._slot_turn += 1
             self._plan_fill += take
             if self._plan_fill == self._cap:
                 self._plan_fill = 0
@@ -466,10 +486,10 @@ class CudaSha256D(Sha256dEngine):
                     from concurrent.futures import ThreadPoolExecutor
 
                     self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="vkmr-pack")
-                future = self._executor.submit(self._pack_worker, chunks, group_flush)
+                future = self._executor.submit(self._pack_worker, chunks, columns, slot)
             else:
-                future = InlinePack(self._pack_worker, chunks, group_flush)
-            self._pack_jobs.append(PackJob(chunks, future, take, group_flush, nbytes))
+                future = InlinePack(self._pack_worker, chunks, columns, slot)
+            self._pack_jobs.append(PackJob(chunks, future, take, group_flush, nbytes, start))
             self._inflight_nbytes += nbytes
             submitted = True
         return submitted
@@ -515,12 +535,12 @@ class CudaSha256D(Sha256dEngine):
         """Consumer half: hash one packed batch into the slice, and reduce
         the slice when it is full.  Strictly in submission order."""
         take, group_flush = job.take, job.group_flush
-        assert take <= self._cap - self._fill, (take, self._cap, self._fill)
+        assert take <= self._cap - self._fill and job.start == self._fill, (take, job.start, self._cap, self._fill)
         if self._fill == 0:
             self._slice_grouped = group_flush
         try:
             with self.times.span("pack_wait"):  # also when the pack is done: one a flush
-                packed, t_pack, one_pass = job.future.result()
+                unit, t_pack, wire = job.future.result()
         except BaseException:
             # Whatever the pack thread raised, its leaves and every queued
             # job's return to the pending head before the error propagates.
@@ -530,11 +550,11 @@ class CudaSha256D(Sha256dEngine):
             raise
         self._inflight_nbytes -= job.nbytes
         self.times.add("pack", t_pack, job.nbytes, throughput=True)
-        if one_pass:
+        if wire:  # the flushes on the compact wire
             self.times.add("pack_one_pass", t_pack, job.nbytes, throughput=True)
         try:
             with self.times.span("map_dispatch", job.nbytes):
-                self._append(packed, group_flush)
+                self._append(unit)
         except torch.cuda.OutOfMemoryError:
             if self._fill == 0:
                 self._slice_grouped = None

@@ -62,16 +62,18 @@ class PendingLeaves:
 
 class PackJob:
     """One in-flight flush batch: its popped chunks (kept so a failure can
-    return them to the FIFO in stream order) and the pack result's future."""
+    return them to the FIFO in stream order), the pack result's future, and
+    the slice column it was planned to start at."""
 
-    __slots__ = ("chunks", "future", "take", "group_flush", "nbytes")
+    __slots__ = ("chunks", "future", "take", "group_flush", "nbytes", "start")
 
-    def __init__(self, chunks, future, take: int, group_flush: bool, nbytes: int) -> None:
+    def __init__(self, chunks, future, take: int, group_flush: bool, nbytes: int, start: int) -> None:
         self.chunks = chunks
         self.future = future
         self.take = take
         self.group_flush = group_flush
         self.nbytes = nbytes
+        self.start = start
 
 
 class InlinePack:

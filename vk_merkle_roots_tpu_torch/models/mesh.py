@@ -5,8 +5,8 @@ The slice buffer lives on the first device of the list, the primary.  The
 engine fans out at two points, each with a round-robin counter:
 
 * each packed **batch** hashes (K1/K4) on the next device in turn, into a
-  fresh ``(8, n)`` tensor there, and is copied into the primary's slice
-  buffer (an ``index_copy_`` for a partial flush into a grouped slice); the
+  fresh ``(8, n)`` tensor there in natural order, and is copied into the
+  primary's slice buffer (an ``index_copy_`` into a grouped slice); the
   single-device engine's in-place hash+append would pin both to one card;
 * each full **slice** is copied to the next device in turn and reduced
   there (grouped or natural, as on one device), its root left there until
@@ -31,6 +31,7 @@ import torch
 from ..config import EngineConfig
 from ..ops.leaf_hash import leaf_hashes
 from ..ops.tree_reduce import group_bitrev_to_natural
+from ..packing import FlushColumns
 from ..parallel.mesh import make_mesh, make_sharded_reduce_fn, shard_digests
 from ..utils.bitmath import largest_pow2_le
 from .cuda import CudaSha256D
@@ -51,10 +52,13 @@ class MeshCudaSha256D(CudaSha256D):
         self._mesh = self._sharded_fn = None
         super().__init__(device=primary, name=name, config=config)
 
-    def _append(self, packed, group_flush: bool) -> None:
+    def _flush_columns(self, start: int, grouped: bool) -> FlushColumns:
+        return FlushColumns(0)  # a batch hashes into a fresh (8, n) tensor in natural order
+
+    def _append(self, unit) -> None:
         dev = self._devices[self._batch_rr % len(self._devices)]
         self._batch_rr += 1
-        self._place(leaf_hashes(packed, dev, times=self.times).to(self.device), group_flush)
+        self._place(leaf_hashes(unit, dev, times=self.times).to(self.device))
 
     def _sharded_reduce(self):
         """The cached sharded slice reducer over the power-of-two prefix of

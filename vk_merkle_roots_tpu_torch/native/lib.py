@@ -20,20 +20,19 @@ from functools import lru_cache
 
 import numpy as np
 
-ABI = 7  # vkmr_native_abi() of vkmr_native.cpp
+ABI = 8  # vkmr_native_abi() of vkmr_native.cpp
 
 
 @lru_cache(maxsize=1)
 def tune_host_allocator() -> bool:
     """Keep large freed staging buffers in the malloc arena instead of
-    returning them to the kernel.  Every packed flush allocates a fresh
-    wire-format buffer (the engine's flush pass: ~11 MB for a 2^16-leaf
-    flush of 1-126 B leaves, a bound known before the pass, of which it
-    writes the ~7 MB that exact tile counts take); with glibc defaults that
-    is a fresh mmap (M_MMAP_THRESHOLD=128 KB) whose first-touch page faults
-    cost several times the packing work itself.  Raising M_MMAP_THRESHOLD
-    alone does not help (the arena top gets trimmed back on free,
-    M_TRIM_THRESHOLD, and the faults return), so both knobs move together.
+    returning them to the kernel.  Every bucket the general packer packs
+    allocates a fresh wire-format buffer (several MB for a 2^16-leaf
+    flush); with glibc defaults that is a fresh mmap (M_MMAP_THRESHOLD=128
+    KB) whose first-touch page faults cost several times the packing work
+    itself.  Raising M_MMAP_THRESHOLD alone does not help (the arena top
+    gets trimmed back on free, M_TRIM_THRESHOLD, and the faults return), so
+    both knobs move together.
     Cost: RSS stays at the staging high-water mark (bounded by
     host_pending_bytes + pack-ahead depth).  Set VKMR_NO_MALLOPT=1 to keep
     glibc defaults."""
@@ -80,10 +79,11 @@ def _load():
         u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int32, u32p, ctypes.c_int64
     ]
     vp = ctypes.c_void_p
-    lib.vkmr_pack_flush.argtypes = [
-        ctypes.c_int32, vp, vp, vp, vp, vp, vp, ctypes.c_int32, vp, ctypes.c_int64, vp, vp, vp, vp, i64p
+    lib.vkmr_wire_flush.argtypes = [
+        ctypes.c_int32, vp, vp, vp, vp, vp, ctypes.c_int32, ctypes.c_int64, vp, ctypes.c_int32, vp,
+        ctypes.c_int64, vp,
     ]
-    lib.vkmr_pack_flush.restype = ctypes.c_int32
+    lib.vkmr_wire_flush.restype = ctypes.c_int32
     lib.vkmr_split_lines.argtypes = [vp, ctypes.c_int64, ctypes.c_int64, vp, vp, ctypes.c_int64]
     lib.vkmr_split_lines.restype = ctypes.c_int64
     lib.vkmr_rndm_stream.argtypes = [
@@ -231,54 +231,53 @@ def native_pack_stream_bucket_tiles(
     return out
 
 
-def native_pack_flush(chunks, perm: np.ndarray | None, max_blocks: int):
-    """The engine's flush pass (``vkmr_pack_flush``): a flush of
-    ``(data, offsets, lengths)`` chunks, read through the permutation
-    ``perm`` over the flush (None: chunk order), bucketed and packed into
-    the exact buckets of 1..8 blocks in one call on this thread, with the
-    interpreter lock released and no OpenMP team.  Returns ``(words, order,
-    inverse_order, rows, word_offsets, total_bytes)``, bucket ``b``'s
-    ``rows[b-1]`` leaves at ``words[word_offsets[b-1]:]``; None when the
-    library is not loaded or a leaf needs more than ``min(max_blocks, 8)``
-    blocks or lies outside its chunk."""
+def native_wire_flush(chunks, start: int, rev: np.ndarray | None, max_blocks: int, slot):
+    """The engine's flush pass onto the compact wire (``vkmr_wire_flush``):
+    a flush of ``(data, offsets, lengths)`` chunks written as a row table
+    and the chunks' raw bytes into the buffer ``slot.buffer(nbytes)`` gives,
+    in one call on this thread, with the interpreter lock released and no
+    OpenMP team.  Natural leaf j of the flush lands at column ``start + j``,
+    or through ``rev``, a group's bit reversal (see
+    :class:`..packing.FlushColumns`).  Returns ``(buf, layout)``, ``layout``
+    being ``vkmr_wire_flush``'s (the bytes in use, the byte region's start and
+    length, the payload, the rows of the buckets of 1..8 blocks); None when
+    the library is not loaded or the pass declines the flush (a leaf of more
+    than ``min(max_blocks, 8)`` blocks, a span outside its chunk, a column
+    past 32 bits, a ``rev`` entry outside its group)."""
     lib = _load()
     if lib is None:
         return None
     datas = [np.ascontiguousarray(d, np.uint8) for d, _, _ in chunks]
     offs = [np.ascontiguousarray(o, np.int64) for _, o, _ in chunks]
     lens = [np.ascontiguousarray(x, np.int64) for _, _, x in chunks]
-    n = sum(x.size for x in lens)
-    if perm is not None:
-        perm = np.ascontiguousarray(perm, np.int64)
-        if perm.shape != (n,):
-            raise ValueError(f"a permutation of {perm.shape} over a flush of {n} leaves")
-    # Words each leaf needs, 16 a block of (len + 72) // 64, plus each
-    # bucket's partial tile: at most 1023 rows of 16 * b words, b = 1..8.
-    nbytes = sum(int(x.sum()) for x in lens)
-    cap = (nbytes + 72 * n) // 4 + 1023 * 16 * 36
-    words = _aligned_empty((cap,), np.uint32)
-    order = np.empty(n, np.int64)
-    inverse = np.empty(n, np.int64)
-    rows = np.empty(8, np.int64)
-    word_offsets = np.empty(8, np.int64)
-    total = ctypes.c_int64(0)
-
+    log2 = -1
+    if rev is not None:
+        rev = np.ascontiguousarray(rev, np.int64)
+        log2 = rev.size.bit_length() - 1
+        if rev.ndim != 1 or rev.size != 1 << log2:
+            raise ValueError(f"a group permutation of {rev.shape} entries, not a power of two")
     tables = [  # kept alive through the call, as the chunks are
         np.array([d.ctypes.data for d in datas], np.uintp), np.array([d.size for d in datas], np.int64),
         np.array([o.ctypes.data for o in offs], np.uintp), np.array([x.ctypes.data for x in lens], np.uintp),
         np.array([x.size for x in lens], np.int64),
     ]
-    rc = lib.vkmr_pack_flush(
-        len(chunks), *(t.ctypes.data for t in tables), None if perm is None else perm.ctypes.data,
-        min(int(max_blocks), 8),  # an int32; the pass takes 8 at most
-        words.ctypes.data, cap, order.ctypes.data, inverse.ctypes.data,
-        rows.ctypes.data, word_offsets.ctypes.data, ctypes.byref(total),
-    )
+    layout = np.zeros(12, np.int64)
+    buf = slot.buffer(0)
+    while True:
+        rc = lib.vkmr_wire_flush(
+            len(chunks), *(t.ctypes.data for t in tables),
+            min(int(max_blocks), 8),  # an int32; the pass takes 8 at most
+            int(start), None if rev is None else rev.ctypes.data, log2,
+            buf.ctypes.data, buf.size, layout.ctypes.data,
+        )
+        if rc != -1:
+            break
+        buf = slot.buffer(int(layout[0]))
     if rc == 1:
         return None
     if rc != 0:
-        raise RuntimeError(f"vkmr_pack_flush failed: rc={rc}")
-    return words, order, inverse, rows, word_offsets, total.value
+        raise RuntimeError(f"vkmr_wire_flush failed: rc={rc}")
+    return buf, layout
 
 
 def native_split_lines(data: np.ndarray, n: int, begin: int = 0, expect: int | None = None):

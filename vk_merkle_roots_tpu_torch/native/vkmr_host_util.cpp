@@ -6,8 +6,10 @@
 //     leaves (role of Batch packing,
 //     Batches.cpp:64-121, and the in-shader padding, SHA-256.comp:207-285 —
 //     done host-side here by design)
-//   * the engine's flush pass: a flush of exact-bucket leaves bucketed,
-//     bit-reversed and packed in one call on one thread
+//   * the engine's flush pass onto the compact wire: a flush of exact-bucket
+//     leaves bucketed into a row table beside their raw bytes, in one call on
+//     one thread (the padding is the leaf kernel's, as in the reference's
+//     shader)
 //   * the line split of a stream read (role of the reference's fgetc reader,
 //     Inputs.cpp:75-101)
 //   * a glibc-compatible rand() stream generator (role of rndm, Rndm.cpp)
@@ -253,17 +255,17 @@ void pack_tiles_grouped(const uint8_t* data, const int64_t* offsets,
   }
 }
 
-// The flush pass's working arrays, kept per thread between calls so that a
-// steady stream of flushes allocates nothing.
-struct Span {
-  const uint8_t* p;
-  int64_t len;
+// What the wire pass knows of one chunk after its first walk: the byte range
+// its spans cover, their payload, and where its bytes start in the region.
+struct WireChunk {
+  int64_t lo, hi, payload, at;
+  bool dense;  // the covered range is copied whole; else span by span
 };
-struct FlushScratch {
-  std::vector<Span> leaf;  // natural leaf j where its chunk holds it
-  std::vector<Span> row;  // the leaf of bucket-concat row r
-  PackScratch pack;
-};
+
+inline uint32_t group_column(int64_t p, const int64_t* rev, int32_t k) {
+  const int64_t mask = (int64_t(1) << k) - 1;
+  return uint32_t(((p >> k) << k) + rev[p & mask]);
+}
 
 }  // namespace
 
@@ -300,96 +302,122 @@ void vkmr_pack_stream_bucket_tiles(const uint8_t* data, const int64_t* offsets,
                      /*exact=*/false, out, total_rows);
 }
 
-// The engine's flush pass: a whole flush of exact-bucket leaves, packed in
-// one call on the calling thread, with no OpenMP team.  The flush is read
-// where it lies: chunk c holds chunk_n[c] leaves, spans (chunk_offs[c][k],
+// The engine's flush pass onto the compact wire: a whole flush of
+// exact-bucket leaves written into one slot in one call on the calling
+// thread, with no OpenMP team and no allocation.  The flush is read where it
+// lies: chunk c holds chunk_n[c] leaves, spans (chunk_offs[c][k],
 // chunk_lens[c][k]) over the chunk_size[c] bytes at chunk_data[c]; the
-// chunks' leaves in turn are the natural leaves 0..n-1, and leaf i of the
-// flush is natural leaf perm[i] (i itself when perm is null).  The leaves
-// are counting-sorted, stably, by padded block count into the exact buckets
-// 1..8: order[r] is the flush leaf in bucket-concat row r and inverse[i] the
-// row of flush leaf i, as packing.pack_spans gives them.  Bucket b goes to
-// out at word bucket_word[b-1], bucket_rows[b-1] leaves in
-// ceil(rows/1024) tiles of the wire format of vkmr_pack_bucket_tiles, rows
-// past the last leaf zero, the buckets back to back in block order.
-// Returns 0, with the payload bytes in *total_bytes; 1, with nothing
-// written to out, when a leaf needs more than min(max_blocks, 8) blocks, a
-// span lies outside its chunk or perm[i] outside [0, n) (the caller's
-// general packer takes such a flush); -1 when the buckets need more than
-// out_words.
-int32_t vkmr_pack_flush(int32_t nchunks, const uint8_t* const* chunk_data,
+// chunks' leaves in turn are the natural leaves 0..n-1 of the flush.
+//
+// The slot holds the row table and then the bytes, so that one copy takes a
+// flush to the device, where K1 pads each leaf itself:
+//   [0, 4n)        u32 byte offset of row r's leaf in the byte region
+//   [4n, 8n)       u32 destination column of row r's digest
+//   [8n, 10n)      u16 length of row r's leaf
+//   [at, at + len) the byte region, at = 10n rounded up to 16, len a
+//                  multiple of 4 (the tail past the last byte is zero)
+// The rows are the leaves counting-sorted by padded block count into the
+// exact buckets 1..8, in natural order within a bucket, so that a bucket's
+// rows rise through the bytes; layout[4 + b - 1] is bucket b's row count.
+// Natural leaf j lands at column start + j, or, with a group bit reversal
+// rev of 2^rev_log2 entries, at the group's base plus rev of the in-group
+// index of start + j.  Each chunk's covered byte range [least offset,
+// greatest end) is copied once, newlines and all, unless it is over four
+// times the chunk's payload (spans scattered over a larger buffer): then its
+// spans are copied one after another.
+//
+// layout[0..3]: the slot bytes in use, the region's start, the region's
+// length, the payload bytes.  Returns 0; 1, with nothing written, when a leaf
+// needs more than min(max_blocks, 8) blocks, a span lies outside its chunk,
+// a column falls outside 32 bits or rev holds an entry outside the group
+// (the caller's general packer takes such a flush); -1, with nothing written
+// but layout, when the slot is shorter than layout[0].
+int32_t vkmr_wire_flush(int32_t nchunks, const uint8_t* const* chunk_data,
                         const int64_t* chunk_size,
                         const int64_t* const* chunk_offs,
                         const int64_t* const* chunk_lens,
-                        const int64_t* chunk_n, const int64_t* perm,
-                        int32_t max_blocks, uint32_t* out, int64_t out_words,
-                        int64_t* order, int64_t* inverse, int64_t* bucket_rows,
-                        int64_t* bucket_word, int64_t* total_bytes) {
+                        const int64_t* chunk_n, int32_t max_blocks,
+                        int64_t start, const int64_t* rev, int32_t rev_log2,
+                        uint8_t* slot, int64_t slot_bytes, int64_t* layout) {
   constexpr int kMaxBlocks = 8;  // packing.UNROLL_MAX_BLOCKS
   const int64_t max_len =
       int64_t(max_blocks < kMaxBlocks ? max_blocks : kMaxBlocks) * 64 - 9;
-  thread_local FlushScratch s;
-  int64_t n = 0;
-  for (int32_t c = 0; c < nchunks; ++c) n += chunk_n[c];
-  s.leaf.resize(size_t(n));
-  s.row.resize(size_t(n));
+  thread_local std::vector<WireChunk> chunks;
+  chunks.resize(size_t(nchunks));
 
-  // The histogram of block counts does not depend on the order, so it is
-  // taken here, in chunk order; then one pass in flush order places each
-  // leaf (a single random read of its span where perm scatters).
+  // First walk, in chunk order: check every span, take the histogram of
+  // block counts and each chunk's covered range.
   int64_t hist[kMaxBlocks + 1] = {0};
-  int64_t total = 0, j = 0;
+  int64_t n = 0, payload = 0, region = 0;
   for (int32_t c = 0; c < nchunks; ++c) {
     const int64_t* offs = chunk_offs[c];
     const int64_t* lens = chunk_lens[c];
-    for (int64_t k = 0; k < chunk_n[c]; ++k, ++j) {
+    WireChunk& ch = chunks[size_t(c)];
+    ch = WireChunk{INT64_MAX, 0, 0, region, true};
+    for (int64_t k = 0; k < chunk_n[c]; ++k) {
       const int64_t off = offs[k], len = lens[k];
       if (len < 0 || len > max_len || off < 0 || off > chunk_size[c] - len)
         return 1;
-      s.leaf[size_t(j)] = Span{chunk_data[c] + off, len};
       ++hist[(len + 9 + 63) / 64];
-      total += len;
+      ch.lo = off < ch.lo ? off : ch.lo;
+      ch.hi = off + len > ch.hi ? off + len : ch.hi;
+      ch.payload += len;
     }
+    if (chunk_n[c] == 0) ch.lo = 0;
+    ch.dense = ch.hi - ch.lo <= 4 * ch.payload;
+    region += ch.dense ? ch.hi - ch.lo : ch.payload;
+    n += chunk_n[c];
+    payload += ch.payload;
   }
+  if (start < 0 || start + n > (int64_t(1) << 32) || region > UINT32_MAX) return 1;
+  const int64_t at = (10 * n + 15) / 16 * 16;
+  const int64_t region_len = (region + 3) / 4 * 4;
+  layout[0] = at + region_len;
+  layout[1] = at;
+  layout[2] = region_len;
+  layout[3] = payload;
   int64_t next[kMaxBlocks + 1];
-  int64_t words = 0;
   for (int b = 1, row = 0; b <= kMaxBlocks; ++b) {
     next[b] = row;
     row += hist[b];
-    bucket_rows[b - 1] = hist[b];
-    bucket_word[b - 1] = words;
-    words += (hist[b] + 1023) / 1024 * 1024 * 16 * b;
+    layout[4 + b - 1] = hist[b];
   }
-  if (words > out_words) return -1;
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t src = perm ? perm[i] : i;
-    if (src < 0 || src >= n) return 1;
-    const Span leaf = s.leaf[size_t(src)];
-    const int64_t r = next[(leaf.len + 9 + 63) / 64]++;
-    order[r] = i;
-    inverse[i] = r;
-    s.row[size_t(r)] = leaf;
+  if (layout[0] > slot_bytes) return -1;
+  if (rev) {
+    const int64_t g = int64_t(1) << rev_log2;
+    for (int64_t i = 0; i < g; ++i)
+      if (rev[i] < 0 || rev[i] >= g) return 1;
   }
 
-  for (int b = 1, row = 0; b <= kMaxBlocks; row += hist[b], ++b) {
-    const int64_t count = hist[b];
-    if (count == 0) continue;
-    const int64_t words_per = int64_t(b) * 16;
-    uint32_t* dst = out + bucket_word[b - 1];
-    const Span* rows = s.row.data() + row;
-    s.pack.fit(words_per);
-    for (int64_t r0 = 0; r0 < count; r0 += 16)
-      pack_group16([&](int64_t i) { return rows[i].p; },
-                   [&](int64_t i) { return rows[i].len; }, count, r0,
-                   words_per, /*exact=*/true, dst, s.pack.rows.data(),
-                   s.pack.stage);
-    zero_row_tail(dst, words_per, (count + 15) / 16 * 16,
-                  (count + 1023) / 1024 * 1024);
+  // Second walk, in natural order: each leaf's row, then its chunk's bytes.
+  uint32_t* row_off = reinterpret_cast<uint32_t*>(slot);
+  uint32_t* row_dst = row_off + n;
+  uint16_t* row_len = reinterpret_cast<uint16_t*>(slot + 8 * n);
+  uint8_t* bytes = slot + at;
+  int64_t j = start;
+  for (int32_t c = 0; c < nchunks; ++c) {
+    const int64_t* offs = chunk_offs[c];
+    const int64_t* lens = chunk_lens[c];
+    const uint8_t* data = chunk_data[c];
+    const WireChunk& ch = chunks[size_t(c)];
+    int64_t run = ch.at;
+    for (int64_t k = 0; k < chunk_n[c]; ++k, ++j) {
+      const int64_t off = offs[k], len = lens[k];
+      const int64_t r = next[(len + 9 + 63) / 64]++;
+      if (ch.dense) {
+        row_off[r] = uint32_t(ch.at + off - ch.lo);
+      } else {
+        row_off[r] = uint32_t(run);
+        std::memcpy(bytes + run, data + off, size_t(len));
+        run += len;
+      }
+      row_len[r] = uint16_t(len);
+      row_dst[r] = rev ? group_column(j, rev, rev_log2) : uint32_t(j);
+    }
+    if (ch.dense && ch.hi > ch.lo)
+      std::memcpy(bytes + ch.at, data + ch.lo, size_t(ch.hi - ch.lo));
   }
-#if defined(__AVX2__)
-  _mm_sfence();  // the NT stores are complete before the caller reads out
-#endif
-  *total_bytes = total;
+  std::memset(bytes + region, 0, size_t(region_len - region));
   return 0;
 }
 

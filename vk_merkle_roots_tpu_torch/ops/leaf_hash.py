@@ -18,6 +18,12 @@ PyTorch version for CPU tensors:
 
 A bucket is a :class:`LeafBucket`; the wrapper orders a flush's buckets
 longest first into the kernel's table (:func:`launch_tables`).
+
+The engine's flushes of short leaves take the compact wire instead
+(:class:`..packing.WireFlush`): one copy of a row table and the raw bytes
+from a reused, page-locked :class:`WireSlot`, then K1's second form
+(:func:`wire_hash_into`, the same kernel name), which pads each leaf on the
+device and writes its digest at its row's column.
 :func:`exact_hash_into` and :func:`stream_hash_into` are the one-bucket
 forms.  All write SHA-256d digests word-major into an ``(8, ld)`` int32
 tensor at each bucket's column, the counterpart of ``bucket_hash_append``
@@ -27,6 +33,7 @@ tensor at each bucket's column, the counterpart of ``bucket_hash_append``
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -34,7 +41,7 @@ import torch
 
 from .. import _build
 from ..constants import TILE
-from ..packing import UNROLL_MAX_BLOCKS, PackedLeaves
+from ..packing import UNROLL_MAX_BLOCKS, PackedLeaves, WireFlush
 from ..utils.timing import StageTimes
 from . import sha256_core as core
 
@@ -215,6 +222,162 @@ def stream_hash_into(
     stream_hash_buckets_into([LeafBucket(words, cap_blocks, count, offset, counts)], out)
 
 
+class _WireBucket(ctypes.Structure):
+    _fields_ = [("nblocks", ctypes.c_int), ("count", ctypes.c_int), ("row_begin", ctypes.c_int),
+                ("cta_begin", ctypes.c_int)]
+
+
+class WireTable(ctypes.Structure):
+    """``WireTable`` of ``csrc/leaf_hash.cu``: the parameter of K1's compact
+    wire form."""
+
+    _fields_ = [("out", ctypes.c_void_p), ("ld", ctypes.c_longlong), ("bytes", ctypes.c_void_p),
+                ("nbytes", ctypes.c_longlong), ("off", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("len", ctypes.c_void_p), ("n", ctypes.c_int), ("pad", ctypes.c_int),
+                ("b", _WireBucket * UNROLL_MAX_BLOCKS)]
+
+
+class WireSlot:
+    """A staging buffer of the compact wire that an engine reuses flush after
+    flush: page-locked on a CUDA device (torch's pinned host allocator, grown
+    to a power of two and then kept), ordinary memory on the CPU.  On each
+    card it copies to, it keeps a device buffer as large and an event, which
+    :meth:`upload` records after its copy (one call into the kernel library,
+    ``vkmr_wire_upload``) and :meth:`buffer` waits on before the slot is
+    written again."""
+
+    MIN_BYTES = 1 << 16
+
+    def __init__(self, device) -> None:
+        self.device = torch.device(device)
+        self.host: torch.Tensor | None = None
+        self._cards: dict[int, tuple[torch.Tensor, int]] = {}  # card -> (device buffer, event)
+        self._pending: int | None = None  # the event after the last copy out of host
+
+    def buffer(self, nbytes: int) -> np.ndarray:
+        """The buffer, at least ``nbytes`` long, once the device has finished
+        the last copy out of it: the flush pass calls this before it writes."""
+        if self._pending is not None:
+            _cuda_check("vkmr_event_wait", _build.load().vkmr_event_wait(self._pending))
+            self._pending = None
+        if self.host is None or self.host.numel() < nbytes:
+            size = max(self.MIN_BYTES, 1 << (nbytes - 1).bit_length())
+            self.host = torch.empty(size, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        return self.host.numpy()
+
+    def upload(self, nbytes: int, device: torch.device) -> torch.Tensor:
+        """A tensor on ``device`` whose first ``nbytes`` are the buffer's: on a
+        CUDA device one copy, not waited for, with the event after it; on the
+        CPU the buffer itself."""
+        if device.type != "cuda":
+            return self.host
+        lib = _build.load()
+        with torch.cuda.device(device):
+            buf, event = self._cards.get(device.index, (None, None))
+            if buf is None or buf.numel() < self.host.numel():
+                buf = torch.empty(self.host.numel(), dtype=torch.uint8, device=device)
+                if event is None:
+                    event = lib.vkmr_event_new()
+                    if not event:
+                        raise RuntimeError("cudaEventCreate failed for a wire slot")
+                    weakref.finalize(self, lib.vkmr_event_free, event)
+                self._cards[device.index] = (buf, event)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            _cuda_check("vkmr_wire_upload",
+                        lib.vkmr_wire_upload(buf.data_ptr(), self.host.data_ptr(), nbytes, stream, event))
+        self._pending = event
+        return buf
+
+
+def _cuda_check(fn: str, rc: int) -> None:
+    if rc != 0:
+        msg = _build.load().vkmr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn} failed: {msg} (error {rc})")
+
+
+def _check_wire(unit: WireFlush, out: torch.Tensor) -> None:
+    if out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != 8 or not out.is_contiguous():
+        raise ValueError(f"want a contiguous (8, ld) int32 output, got {tuple(out.shape)} {out.dtype}")
+    if unit.rows.shape != (UNROLL_MAX_BLOCKS,) or int(unit.rows.sum()) != unit.count or unit.count >= 1 << 31:
+        raise ValueError(f"rows {unit.rows} do not add up to the {unit.count} rows of the table")
+    table = 10 * unit.count
+    if unit.bytes_at < table or unit.bytes_at % 16 or unit.byte_len % 4:
+        raise ValueError(f"a byte region at {unit.bytes_at} of {unit.byte_len} bytes over a {table}-byte table")
+    if unit.nbytes != unit.bytes_at + unit.byte_len or unit.nbytes > unit.buf.size:
+        raise ValueError(f"{unit.nbytes} bytes in use of a {unit.buf.size}-byte buffer")
+
+
+def wire_tables(unit: WireFlush, dev: torch.Tensor, out: torch.Tensor) -> tuple[WireTable, int]:
+    """K1's table for the compact unit ``unit`` copied to ``dev``, and its
+    CTA count: buckets with the most blocks first, as :func:`launch_tables`
+    orders them."""
+    base, n = dev.data_ptr(), unit.count
+    table = WireTable(out=out.data_ptr(), ld=out.stride(0), bytes=base + unit.bytes_at, nbytes=unit.byte_len,
+                      off=base, dst=base + 4 * n, len=base + 8 * n)
+    begins = np.concatenate(([0], np.cumsum(unit.rows)[:-1]))
+    ctas = 0
+    for b in range(UNROLL_MAX_BLOCKS, 0, -1):
+        count = int(unit.rows[b - 1])
+        if count:
+            table.b[table.n] = _WireBucket(b, count, int(begins[b - 1]), ctas)
+            table.n += 1
+            ctas += -(-count // EXACT_CTA_THREADS)
+    return table, ctas
+
+
+def wire_hash_plain(unit: WireFlush, out: torch.Tensor) -> None:
+    """Plain version of K1's compact wire form: each row padded on the host
+    from the same table and bytes, with the kernel's clamps, and compressed
+    with ``sha256_core``; its digest goes to ``out[:, column]`` unless the
+    column is at or past ``out``'s width."""
+    off, lens, cols = (x.astype(np.int64) for x in (unit.offsets, unit.lengths, unit.columns))
+    region, nbytes = unit.region, unit.byte_len
+    row = 0
+    for b in range(1, UNROLL_MAX_BLOCKS + 1):
+        count = int(unit.rows[b - 1])
+        rows, row = slice(row, row + count), row + count
+        if not count:
+            continue
+        o = np.minimum(off[rows], nbytes)
+        n = np.minimum(np.minimum(lens[rows], nbytes - o), b * 64 - 9)
+        pitch = b * 64
+        buf = np.zeros((count, pitch), np.uint8)
+        total = int(n.sum())
+        if total:
+            within = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(n) - n, n)
+            buf.reshape(-1)[np.repeat(np.arange(count) * pitch, n) + within] = region[np.repeat(o, n) + within]
+        buf[np.arange(count), n] = 0x80
+        words = buf.view(">u4").astype(np.uint32)
+        words[:, -1] = (n << 3).astype(np.uint32)
+        w = core.to_words(torch.from_numpy(np.ascontiguousarray(words.T).view(np.int32)))
+        digs = core.from_words(torch.stack(core.leaf_digest_words([[w[k * 16 + t] for t in range(16)]
+                                                                   for k in range(b)])))
+        keep = cols[rows] < out.shape[1]
+        out[:, torch.from_numpy(cols[rows][keep])] = digs[:, torch.from_numpy(keep)]
+
+
+def wire_hash_into(unit: WireFlush, out: torch.Tensor, times: StageTimes | None = None) -> None:
+    """SHA-256d of every leaf of a compact unit, each into ``out[:, c]`` at
+    its row's column c: the unit's one copy from its slot (the ``upload``
+    span, with the slot bytes in use), then one K1 launch on the card; the
+    plain version on the CPU, from the same buffer."""
+    _check_wire(unit, out)
+    if times is None:
+        dev = unit.slot.upload(unit.nbytes, out.device)
+    else:
+        with times.span("upload", unit.nbytes):
+            dev = unit.slot.upload(unit.nbytes, out.device)
+    if out.device.type == "cpu":
+        _build.plain_calls["leaf_hash_exact"] += 1
+        wire_hash_plain(unit, out)
+        return
+    with torch.cuda.device(out.device):
+        table, ctas = wire_tables(unit, dev, out)
+        if ctas:
+            _build.launch("leaf_hash_exact", "vkmr_leaf_hash_wire", ctypes.addressof(table), ctas,
+                          _build.stream_of(out), entries=table.n)
+
+
 def to_device_words(arr: np.ndarray, device) -> torch.Tensor:
     """Host uint32 (or int32) array -> int32 tensor on ``device`` (same bits)."""
     return torch.from_numpy(np.ascontiguousarray(arr).view(np.int32)).to(device)
@@ -263,12 +426,18 @@ def flush_buckets(packed: PackedLeaves, device, base: int = 0) -> tuple[list[Lea
 
 
 def leaf_hashes(
-    packed: PackedLeaves, device, out: torch.Tensor | None = None, offset: int = 0, times: StageTimes | None = None
+    packed: PackedLeaves | WireFlush, device, out: torch.Tensor | None = None, offset: int = 0,
+    times: StageTimes | None = None,
 ) -> torch.Tensor:
     """Hash all packed leaves; returns (8, packed.count) int32 word-major
     digest columns in the original input order.  With ``out`` (an (8, ld)
     int32 tensor on ``device``) the digests land in
     ``out[:, offset:offset + count]`` and that view is returned.
+
+    A compact unit (:class:`..packing.WireFlush`) is hashed by
+    :func:`wire_hash_into` instead, each digest at its row's column: into
+    ``out`` (``offset`` unused), which is returned whole, or into a fresh
+    ``(8, count)`` tensor, whose columns the unit's must be.
 
     Port of ``leaf_hash.py::leaf_hashes`` (:243): the exact buckets hash in
     one K1 launch and the stream rungs in one K4 launch, each into its column
@@ -280,6 +449,11 @@ def leaf_hashes(
     digests and the inverse order, copied after the kernels are launched,
     are not in it."""
     device = torch.device(device)
+    if isinstance(packed, WireFlush):
+        if out is None:
+            out = torch.empty((8, packed.count), dtype=torch.int32, device=device)
+        wire_hash_into(packed, out, times)
+        return out
     n = packed.count
     identity = packed.order is packed.inverse_order or np.array_equal(packed.inverse_order, np.arange(n))
     if out is not None and identity:

@@ -51,14 +51,16 @@ _OP_COUNTS = {
                   "and": 508, "total": 12951},
 }
 
-# Kernels of the built library, by the name in their mangled symbol.
+# Kernels of the built library, by the names in their mangled symbol (K1's
+# two forms by the type of their table).
 SASS_KERNELS = {
-    "leaf_hash_exact": "leaf_hash_exact_kernel",
-    "leaf_hash_stream": "leaf_hash_stream_kernel",
-    "fold_level": "fold_level_kernel",
-    "tail_reduce": "tail_reduce_kernel",
-    "alu_probe": "alu_probe_kernel",
-    "rot_probe": "rot_probe_kernel",
+    "leaf_hash_exact": ("leaf_hash_exact_kernel", "LeafTable"),
+    "leaf_hash_wire": ("leaf_hash_exact_kernel", "WireTable"),
+    "leaf_hash_stream": ("leaf_hash_stream_kernel",),
+    "fold_level": ("fold_level_kernel",),
+    "tail_reduce": ("tail_reduce_kernel",),
+    "alu_probe": ("alu_probe_kernel",),
+    "rot_probe": ("rot_probe_kernel",),
 }
 # Opcodes of the integer pipes (IMAD runs on the FMA pipe, and nvcc issues
 # adds and moves as IMAD too).
@@ -227,7 +229,7 @@ def parse_sass(text: str) -> dict[str, dict]:
     for line in text.splitlines():
         if "Function : " in line:
             symbol = line.split("Function : ", 1)[1].strip()
-            current = next((short for short, name in SASS_KERNELS.items() if name in symbol), None)
+            current = next((short for short, names in SASS_KERNELS.items() if all(n in symbol for n in names)), None)
             if current is not None:
                 functions[current] = []
             continue

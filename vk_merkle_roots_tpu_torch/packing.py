@@ -12,11 +12,17 @@ Python loop on the hot path.
 
 The bucket outputs concatenate to a leaf order different from the input
 order; ``PackedLeaves.inverse_order`` is the gather that restores it.
+
+The engine's flush of short leaves takes the reference's way instead
+(:func:`pack_flush`): the raw bytes and a row table of ``{offset, length,
+column}`` on a compact wire (:class:`WireFlush`), padded by the leaf kernel
+on the device, each digest written at its column.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 
@@ -35,8 +41,7 @@ def quantized_tiles(n: int) -> int:
     kernels are shared across batches instead of recompiling per exact
     count (rows past ``n`` are zero and their digests are never gathered).
     The JAX package's rule, kept by :func:`pack_spans`; the CUDA kernels take
-    any tile count, and the engine's flush pass (:func:`pack_flush`) packs
-    ``ceil(n / 1024)`` tiles."""
+    any tile count."""
     t = -(-n // TILE)
     return 1 << (t - 1).bit_length() if t > 1 else 1
 
@@ -314,37 +319,84 @@ def merge_chunks(chunks):
     return np.concatenate(datas), np.concatenate(offs_parts), np.concatenate(lens_parts)
 
 
-def pack_flush(chunks, perm: np.ndarray | None, max_device_blocks: int | None = None) -> tuple[PackedLeaves, bool]:
-    """Pack one engine flush: its ``(data, offsets, lengths)`` chunks joined
-    and gathered through ``perm`` (chunk order when ``perm`` is None) into
-    one ``PackedLeaves``, and whether the native flush pass packed it.
+class FlushColumns(NamedTuple):
+    """Where a flush's digests land: natural leaf j of the flush at column
+    ``c(start + j)``, where ``c`` is the identity, or, with ``rev`` the bit
+    reversal of a group of 2^k, ``c(p)`` is p's group base plus ``rev`` of
+    p's index in its group (a group-bitrev slice, ``docs/DESIGN.md`` §2b)."""
 
-    The pass (``vkmr_pack_flush``) reads each leaf where it lies, in one
-    call that holds no interpreter lock and starts no OpenMP team: the
-    buckets, ``order`` and ``inverse_order`` of ``pack_spans``, but each
-    bucket ``ceil(count / 1024)`` tiles, not :func:`quantized_tiles`, all in
-    one allocation.  It declines a flush when the library is not loaded or a
-    leaf needs more than ``UNROLL_MAX_BLOCKS`` or ``max_device_blocks``
-    blocks; that flush is ``pack_spans`` of :func:`merge_chunks`, permuted."""
-    from .native.lib import native_pack_flush
+    start: int
+    rev: np.ndarray | None = None
 
-    got = native_pack_flush(chunks, perm, UNROLL_MAX_BLOCKS if max_device_blocks is None else max_device_blocks)
+    def of(self, n: int) -> np.ndarray:
+        """The int64 columns of the flush's first ``n`` natural leaves."""
+        pos = np.arange(self.start, self.start + n, dtype=np.int64)
+        if self.rev is None:
+            return pos
+        k = int(self.rev.size).bit_length() - 1
+        return ((pos >> k) << k) + np.asarray(self.rev, np.int64)[pos & ((1 << k) - 1)]
+
+
+@dataclass
+class WireFlush:
+    """One flush of exact-bucket leaves on the compact wire: a row table
+    and the leaves' raw bytes in one buffer, ``buf[:nbytes]``, which one copy
+    takes to the device, where K1 pads each leaf itself.  Row r (the rows
+    are the leaves in buckets of 1..8 blocks, natural order within a bucket)
+    has a u32 byte offset into the byte region ``buf[bytes_at:bytes_at +
+    byte_len]``, a u32 destination column and a u16 length, at
+    ``buf[4r]``, ``buf[4n + 4r]`` and ``buf[8n + 2r]`` (n = ``count``)."""
+
+    slot: object  # what gave ``buf`` (the engine's reused, page-locked slot)
+    buf: np.ndarray  # uint8
+    nbytes: int  # bytes of buf in use, the table's and the region's
+    count: int
+    total_bytes: int  # payload bytes
+    rows: np.ndarray  # (8,) rows of the buckets of 1..8 blocks, in that order
+    bytes_at: int
+    byte_len: int  # a multiple of 4; zero past the last leaf's bytes
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return self.buf[: 4 * self.count].view(np.uint32)
+
+    @property
+    def columns(self) -> np.ndarray:
+        return self.buf[4 * self.count : 8 * self.count].view(np.uint32)
+
+    @property
+    def lengths(self) -> np.ndarray:
+        return self.buf[8 * self.count : 10 * self.count].view(np.uint16)
+
+    @property
+    def region(self) -> np.ndarray:
+        return self.buf[self.bytes_at : self.bytes_at + self.byte_len]
+
+
+def pack_flush(
+    chunks, columns: FlushColumns, max_device_blocks: int | None, slot
+) -> tuple[WireFlush | PackedLeaves, bool]:
+    """Pack one engine flush of ``(data, offsets, lengths)`` chunks, and say
+    whether it went onto the compact wire.
+
+    The native pass (``vkmr_wire_flush``) writes a flush whose every leaf
+    fits an exact bucket into ``slot`` as a :class:`WireFlush`, each digest's
+    destination from ``columns``, in one call that holds no interpreter lock
+    and starts no OpenMP team.  It declines a flush when the library is not
+    loaded or a leaf needs more than ``UNROLL_MAX_BLOCKS`` or
+    ``max_device_blocks`` blocks; that flush is ``pack_spans`` of
+    :func:`merge_chunks`, in natural order, whose digests the engine places
+    at ``columns`` itself."""
+    from .native.lib import native_wire_flush
+
+    max_blocks = UNROLL_MAX_BLOCKS if max_device_blocks is None else max_device_blocks
+    got = native_wire_flush(chunks, columns.start, columns.rev, max_blocks, slot)
     if got is None:
-        data, offs, lens = merge_chunks(chunks)
-        if perm is not None:
-            offs, lens = offs[perm], lens[perm]
-        return pack_spans(data, offs, lens, max_device_blocks), False
-    words, order, inverse, rows, word_offsets, total = got
-    buckets = []
-    for b in range(1, UNROLL_MAX_BLOCKS + 1):
-        count = int(rows[b - 1])
-        if count:
-            tiles, lo = -(-count // TILE), int(word_offsets[b - 1])
-            bucket = words[lo : lo + tiles * b * 16 * TILE].reshape(tiles, b * 16, TILE_SUB, TILE_LANE)
-            buckets.append(Bucket(b, bucket, count))
-    if len(buckets) == 1:  # one bucket keeps the input order, as pack_spans' fast path says
-        inverse = order
-    return PackedLeaves(buckets, order, inverse, int(order.size), total), True
+        return pack_spans(*merge_chunks(chunks), max_device_blocks), False
+    buf, layout = got
+    nbytes, bytes_at, byte_len, total = (int(x) for x in layout[:4])
+    rows = layout[4:12].copy()
+    return WireFlush(slot, buf, nbytes, int(rows.sum()), total, rows, bytes_at, byte_len), True
 
 
 def pack_leaves(leaves: list[bytes]) -> PackedLeaves:
